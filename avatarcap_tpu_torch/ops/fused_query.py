@@ -1,0 +1,226 @@
+"""Fused warp + template point query: kernel K1 of the port.
+
+``warp_template_query`` replaces the Pallas kernel
+avatarcap_tpu/ops/pallas_query.py:warp_template_query_fused (pallas_call
+at :341, body _warp_template_core :255-296). On a CUDA tensor it launches
+the hand-written Hopper kernel ``csrc/warp_template_query.cu`` (or raises);
+on a CPU tensor it runs ``warp_template_query_plain``, the same arithmetic
+in plain PyTorch. Nothing falls back from the card to the plain version.
+
+What bounds it on an H100: operations -- ~1.97 MFLOP per point against
+~172 B of input and output per point (3 f32 + 64 bf16 in, 8 f32 out). The
+kernel keeps each 128-point tile's activations in shared memory across all
+20 layers, runs every product on bf16 tensor cores with f32 accumulators,
+and streams the ~2 MB of packed weights from L2 (see the source's header).
+
+The contract of both versions (the TPU kernel's rounding points):
+points rounded to bf16 only for the decoder input; the PE built from the
+f32 warped points; bf16 operands and f32 accumulation in every product;
+every activation rounded to bf16 after its nonlinearity; softplus =
+logaddexp(x, 0) in f32; eval BatchNorm folded into the packed weights.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from avatarcap_tpu_torch.ops.embed import positional_encoding
+
+NUM_FREQS = 10
+POSE_FEAT_DIM = 64
+# (out, in) of every packed layer: 8 offset-decoder layers, 12 template
+OFFSET_SHAPES = ((256, 67), (256, 256), (256, 256), (256, 256),
+                 (256, 323), (256, 256), (256, 256), (3, 256))
+TEMPLATE_SHAPES = ((256, 63), (256, 256), (256, 256), (256, 256),
+                   (256, 319), (256, 256), (256, 256), (128, 256), (2, 128),
+                   (256, 256), (128, 256), (3, 128))
+# multiply-adds per point, from the shapes above (985,472 -> ~1.97 MFLOP)
+MACS_PER_POINT = sum(o * i for o, i in OFFSET_SHAPES + TEMPLATE_SHAPES)
+
+
+def _pack_layer(weight_oi: torch.Tensor, bias: torch.Tensor):
+    return (weight_oi.detach().to(torch.bfloat16).contiguous(),
+            bias.detach().to(torch.float32).contiguous())
+
+
+def pack_offset_weights(warping_field, eps: float = 1e-5
+                        ) -> Tuple[torch.Tensor, ...]:
+    """WarpingField OffsetDecoder + out head -> (v1, c1, ..., v7, c7, ow, ob):
+    (O, I) bf16 weights with eval BatchNorm folded in, (O,) f32 biases."""
+    mlp = warping_field.mlp
+    packed = []
+    for i in range(1, 8):
+        conv = getattr(mlp, f"conv{i}")
+        bn = getattr(mlp, f"bn{i}")
+        k = conv.weight[:, :, 0].float()
+        a = bn.weight.float() / torch.sqrt(bn.running_var.float() + eps)
+        packed += _pack_layer(k * a[:, None],
+                              (conv.bias.float() - bn.running_mean.float())
+                              * a + bn.bias.float())
+    out = warping_field.out_layer_coord_affine
+    packed += _pack_layer(out.weight[:, :, 0], out.bias)
+    return tuple(packed)
+
+
+def pack_template_weights(cano_template) -> Tuple[torch.Tensor, ...]:
+    """DoubleTNet -> (w0, b0, ..., w6, b6, gw0, gb0, gw1, gb1, cw0, cb0,
+    cw1, cb1, cw2, cb2): (O, I) bf16 weights, (O,) f32 biases."""
+    sp = cano_template.shared_mlp.fc_list
+    gp = cano_template.geo_mlp.fc_list
+    cp = cano_template.clr_mlp.fc_list
+    layers = [sp[i][0] for i in range(6)] + [sp[6], gp[0][0], gp[1],
+                                             cp[0][0], cp[1][0], cp[2]]
+    packed = []
+    for conv in layers:
+        packed += _pack_layer(conv.weight[:, :, 0], conv.bias)
+    return tuple(packed)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _dot(w: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16-valued operands, f32 products and accumulation, f32 bias."""
+    return h.float() @ w.float().T + b
+
+
+def warp_template_query_plain(packed_offset: Sequence[torch.Tensor],
+                              packed_template: Sequence[torch.Tensor],
+                              pts: torch.Tensor, pose_feat: torch.Tensor
+                              ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the kernel (same arithmetic, any device).
+
+    Args:
+      pts: (N, 3) canonical points; pose_feat: (N, 64) pose features.
+    Returns:
+      dict(occ (N, 1), alpha (N, 1), rgb (N, 3), offset (N, 3)), f32.
+    """
+    bf = torch.bfloat16
+    v = packed_offset
+    w = packed_template
+    pts = pts.float()
+    x = torch.cat([pts.to(bf), pose_feat.to(bf)], dim=-1)        # (N, 67)
+    h = x
+    for i in range(4):
+        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(bf)
+    h = torch.cat([x, h], dim=-1)                                # (N, 323)
+    for i in range(4, 7):
+        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(bf)
+    off = _dot(v[14], h, v[15])                                  # (N, 3)
+
+    pe = positional_encoding(pts + off, NUM_FREQS).to(bf)        # (N, 63)
+    h = pe
+    for i in range(4):
+        h = torch.relu(_dot(w[2 * i], h, w[2 * i + 1])).to(bf)
+    h = torch.cat([h, pe], dim=-1)                               # (N, 319)
+    for i in range(4, 6):
+        h = torch.relu(_dot(w[2 * i], h, w[2 * i + 1])).to(bf)
+    feat = _dot(w[12], h, w[13]).to(bf)
+
+    g = _dot(w[14], feat, w[15])
+    g = torch.where(g >= 0, g, 0.02 * g).to(bf)
+    geo = _dot(w[16], g, w[17])                                  # (N, 2)
+    c = torch.relu(_dot(w[18], feat, w[19])).to(bf)
+    c = torch.relu(_dot(w[20], c, w[21])).to(bf)
+    rgb = torch.sigmoid(_dot(w[22], c, w[23]))
+    return {"occ": geo[:, 0:1], "alpha": torch.relu(geo[:, 1:2]),
+            "rgb": rgb, "offset": off}
+
+
+def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
+    if len(packed) != 2 * len(shapes):
+        raise ValueError(f"expected {2 * len(shapes)} packed tensors, "
+                         f"got {len(packed)}")
+    for (o, i), w, b in zip(shapes, packed[0::2], packed[1::2]):
+        # the kernel reads weight rows of even length as 4-byte words
+        if (w.dtype != torch.bfloat16 or tuple(w.shape) != (o, i)
+                or not w.is_contiguous() or w.device != device
+                or w.data_ptr() % 4):
+            raise ValueError(f"packed weight must be contiguous 4-byte "
+                             f"aligned bf16 ({o}, {i}) on {device}, got "
+                             f"{w.dtype} {tuple(w.shape)} on {w.device}")
+        if (b.dtype != torch.float32 or tuple(b.shape) != (o,)
+                or not b.is_contiguous() or b.device != device):
+            raise ValueError(f"packed bias must be contiguous f32 ({o},) on "
+                             f"{device}, got {b.dtype} {tuple(b.shape)} on "
+                             f"{b.device}")
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    from avatarcap_tpu_torch import kernels
+    lib = kernels.load("warp_template_query")
+    lib.wtq_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.wtq_launch.restype = ctypes.c_int
+    lib.wtq_error_string.argtypes = [ctypes.c_int]
+    lib.wtq_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(packed_offset, packed_template, pts, pose_feat):
+    dev = pts.device
+    n = pts.shape[0]
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be (N, 3), got {tuple(pts.shape)}")
+    if tuple(pose_feat.shape) != (n, POSE_FEAT_DIM) or pose_feat.device != dev:
+        raise ValueError(f"pose_feat must be ({n}, {POSE_FEAT_DIM}) on {dev}, "
+                         f"got {tuple(pose_feat.shape)} on {pose_feat.device}")
+    if n >= 2 ** 31:
+        raise ValueError("too many points for one launch")
+    _check_weights(packed_offset, OFFSET_SHAPES, dev)
+    _check_weights(packed_template, TEMPLATE_SHAPES, dev)
+    pts = pts.to(torch.float32).contiguous()
+    pf = pose_feat.to(torch.bfloat16).contiguous()
+    occ = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    alpha = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    off = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    out = {"occ": occ, "alpha": alpha, "rgb": rgb, "offset": off}
+    if n == 0:
+        return out
+    lib = _kernel_lib()
+    ptrs = (ctypes.c_void_p * 40)(
+        *[t.data_ptr() for t in tuple(packed_offset) + tuple(packed_template)])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.wtq_launch(pts.data_ptr(), pf.data_ptr(), n, ptrs,
+                             occ.data_ptr(), alpha.data_ptr(), rgb.data_ptr(),
+                             off.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("warp_template_query kernel launch failed: "
+                           + lib.wtq_error_string(err).decode())
+    warp_template_query.launches += 1
+    return out
+
+
+def warp_template_query(packed_offset: Sequence[torch.Tensor],
+                        packed_template: Sequence[torch.Tensor],
+                        pts: torch.Tensor, pose_feat: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+    """One-kernel warp + template query (inference).
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``warp_template_query.launches``); CPU tensors run the plain version.
+
+    Args:
+      pts: (N, 3) canonical points; pose_feat: (N, 64) pose features
+        (rounded to bf16, as the TPU kernel's wrapper does).
+    Returns:
+      dict(occ (N, 1), alpha (N, 1), rgb (N, 3), offset (N, 3)), f32.
+    """
+    if pts.device.type == "cuda":
+        return _launch(packed_offset, packed_template, pts, pose_feat)
+    if pts.device.type == "cpu":
+        return warp_template_query_plain(packed_offset, packed_template,
+                                         pts, pose_feat)
+    raise ValueError(f"unsupported device {pts.device}")
+
+
+warp_template_query.launches = 0

@@ -1,0 +1,46 @@
+"""Canonical orthographic cameras (numpy, host-side set-up; a copy of the
+parts of avatarcap_tpu/render/camera.py the canonical layers use).
+
+GL conventions: row-major (4, 4) matrices; the back view is the front
+view rotated pi about y around the mesh center.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+def _rot_y(angle):
+    c, s = math.cos(angle), math.sin(angle)
+    m = np.identity(4, np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return m
+
+
+def gl_orthographic_projection_matrix(far=-100.0, near=-0.1):
+    """Unit-scale x/y ortho window."""
+    proj = np.zeros((4, 4), np.float32)
+    proj[0, 0] = 1.0
+    proj[1, 1] = 1.0
+    proj[2, 2] = 2 / (far - near)
+    proj[2, 3] = -(far + near) / (far - near)
+    proj[3, 3] = 1.0
+    return proj
+
+
+def cano_front_back_mvp(mesh_center: np.ndarray):
+    """Front/back orthographic canonical (mvp, mv) pairs:
+    returns (front_mvp, front_mv, back_mvp, back_mv)."""
+    proj = gl_orthographic_projection_matrix()
+    front_mv = np.identity(4, np.float32)
+    front_mv[:3, 3] = -mesh_center
+    front_mv[2, 3] -= 10
+
+    trans_cen = np.identity(4, np.float32)
+    trans_cen[:3, 3] = -mesh_center
+    trans_z = np.identity(4, np.float32)
+    trans_z[2, 3] = -10
+    back_mv = trans_z @ _rot_y(math.pi) @ trans_cen
+    return proj @ front_mv, front_mv, proj @ back_mv, back_mv

@@ -1,0 +1,287 @@
+"""Static-capacity software rasterizer, canonical mirror-pair pass
+(counterpart of avatarcap_tpu/render/raster.py: ``rasterize_index_pair``,
+``_big_triangle_pass`` and ``interpolate``).
+
+Same algorithm and conventions as the JAX module, so outputs compare
+pixel for pixel: a static K x K candidate window anchored at the ceil of
+each triangle's pixel-space bbox min; edge-function coverage with a
+-1e-6 barycentric slack; z-resolve by scatter-min of depth, then
+scatter-min of the candidate id among depth winners (ties go to the
+lowest id); triangles larger than the window take an exact per-pixel pass
+of at most ``big_tri_capacity`` triangles, merged by depth. Image row 0 is
+the top (y_ndc = +1), column 0 the left; counter-clockwise in GL window
+space is front-facing. Dropped work (candidate or big-triangle capacity)
+is reported in ``overflow``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
+
+_INT_MAX = torch.iinfo(torch.int32).max
+
+
+class RasterIndex(NamedTuple):
+    """Visibility buffer: per-pixel winning triangle + weights."""
+
+    tri: torch.Tensor       # (H*W,) int64 winner triangle (0 where empty)
+    bw: torch.Tensor        # (H*W, 3) vertex weights
+    depth: torch.Tensor     # (H, W) NDC depth, +inf where empty
+    mask: torch.Tensor      # (H, W) bool coverage
+    overflow: torch.Tensor  # () bool
+    n_candidates: torch.Tensor = None  # () covered candidates before the cut
+    n_big: torch.Tensor = None         # () triangles routed to the big pass
+
+
+def interpolate(ri: RasterIndex, attrs: torch.Tensor,
+                covered_capacity: int = 0):
+    """Interpolate per-vertex attrs (T, 3, A) at a RasterIndex's pixels
+    (background 0). covered_capacity > 0 gathers only at covered pixels,
+    compacted to that capacity. Returns (image (H, W, A), () overflow of
+    that capacity) -- the JAX ``with_overflow=True`` form.
+    """
+    H, W = ri.mask.shape
+    A = attrs.shape[-1]
+    if covered_capacity > 0:
+        P = H * W
+        pix, n_cov, live = compact_mask_indices(ri.mask.reshape(-1),
+                                                covered_capacity)
+        pix = pix.long()
+        at = attrs[ri.tri[pix]]                              # (C, 3, A)
+        out_c = (at * ri.bw[pix][..., None]).sum(1)
+        out = out_c.new_zeros((P + 1, A))
+        out[torch.where(live, pix, torch.full_like(pix, P))] = out_c
+        return out[:P].reshape(H, W, A), n_cov > covered_capacity
+    out = (attrs[ri.tri] * ri.bw[..., None]).sum(1)
+    out = torch.where(ri.mask.reshape(-1)[:, None], out,
+                      torch.zeros_like(out))
+    return (out.reshape(H, W, A),
+            torch.zeros((), dtype=torch.bool, device=out.device))
+
+
+def _perspective_weights(w0, w1, iw_tri):
+    w2 = 1.0 - w0 - w1
+    bw = torch.stack([w0 * iw_tri[..., 0], w1 * iw_tri[..., 1],
+                      w2 * iw_tri[..., 2]], dim=-1)
+    denom = bw.sum(-1, keepdim=True)
+    return bw / torch.where(denom.abs() < 1e-12, torch.ones_like(denom),
+                            denom)
+
+
+def _safe_div_den(a: torch.Tensor) -> torch.Tensor:
+    return torch.where(a.abs() < 1e-12, torch.ones_like(a), a)
+
+
+def _big_triangle_pass(px, py, pz, iw, area2, is_big, capacity, height,
+                       width):
+    """Exact coverage for <= capacity oversized triangles: every pixel
+    tests each of them and keeps the min-depth winner (first on ties).
+    Returns flat (P,) winner tri ids, (P, 3) weights, (P,) depth (+inf
+    empty), (P,) mask and the () capacity overflow."""
+    dev = px.device
+    idx, n_big, live = compact_mask_indices(is_big, capacity)
+    idx = idx.long()
+    bpx, bpy, bpz = px[idx], py[idx], pz[idx]                # (C, 3)
+    biw = iw[idx]
+    barea = area2[idx]
+
+    fy, fx = torch.meshgrid(torch.arange(height, dtype=px.dtype, device=dev),
+                            torch.arange(width, dtype=px.dtype, device=dev),
+                            indexing="ij")
+    fx = fx.reshape(-1)
+    fy = fy.reshape(-1)
+    eps = -1e-6
+
+    def cover_z(w0, w1, z0, z1, z2, alive):
+        w2 = 1.0 - w0 - w1
+        covered = (w0 >= eps) & (w1 >= eps) & (w2 >= eps) & alive
+        z = w0 * z0 + w1 * z1 + w2 * z2
+        covered = covered & (z >= -1.0) & (z <= 1.0)
+        return covered, z
+
+    ax, ay = bpx[:, 0:1], bpy[:, 0:1]
+    bx, by = bpx[:, 1:2], bpy[:, 1:2]
+    cx, cy = bpx[:, 2:3], bpy[:, 2:3]
+    inv_area = 1.0 / _safe_div_den(barea)[:, None]
+    w0 = ((cx - bx) * (fy[None] - by) - (cy - by) * (fx[None] - bx)) \
+        * inv_area                                           # (C, P)
+    w1 = ((ax - cx) * (fy[None] - cy) - (ay - cy) * (fx[None] - cx)) \
+        * inv_area
+    covered, z = cover_z(w0, w1, bpz[:, 0:1], bpz[:, 1:2], bpz[:, 2:3],
+                         live[:, None])
+    zm = torch.where(covered, z, torch.full_like(z, float("inf")))
+    best = torch.argmin(zm, dim=0)                           # (P,)
+
+    table = torch.cat([bpx, bpy, bpz, biw, barea[:, None],
+                       idx.to(px.dtype)[:, None],
+                       live.to(px.dtype)[:, None]], dim=-1)   # (C, 16)
+    rows = table[best]
+    rax, ray = rows[:, 0], rows[:, 3]
+    rbx, rby = rows[:, 1], rows[:, 4]
+    rcx, rcy = rows[:, 2], rows[:, 5]
+    rz = rows[:, 6:9]
+    riw = rows[:, 9:12]
+    rinv = 1.0 / _safe_div_den(rows[:, 12])
+    rtri = rows[:, 13]
+    rlive = rows[:, 14] > 0.5
+    w0b = ((rcx - rbx) * (fy - rby) - (rcy - rby) * (fx - rbx)) * rinv
+    w1b = ((rax - rcx) * (fy - rcy) - (ray - rcy) * (fx - rcx)) * rinv
+    mask, zbest = cover_z(w0b, w1b, rz[:, 0], rz[:, 1], rz[:, 2], rlive)
+    bw = _perspective_weights(w0b, w1b, riw)
+    tri = torch.where(mask, rtri.long(), torch.zeros_like(rtri.long()))
+    return (tri, bw, torch.where(mask, zbest, torch.full_like(zbest,
+                                                              float("inf"))),
+            mask, n_big > capacity)
+
+
+def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
+                         valid_tris: torch.Tensor, height: int, width: int,
+                         window: int = 4, max_candidates: int = 0,
+                         big_tri_capacity: int = 0):
+    """Front + back index passes of a mirror-pair camera in one candidate
+    sweep (the canonical ortho front/back views).
+
+    Precondition (camera.cano_front_back_mvp): back NDC = (-x_f, y_f, z_b)
+    with the same ortho projection, so the back pixel grid is the
+    x-mirror of the front's and back-face culling routes every
+    non-degenerate triangle to exactly one view. Back-routed candidates
+    scatter at the mirrored column of a second buffer; outputs keep the
+    convention of two separate passes (back buffer in back-view pixel
+    coordinates, not pre-flipped).
+
+    Args:
+      clip_front, clip_back: (T, 3, 4) clip-space vertices (w == 1).
+      valid_tris: (T,) bool.
+    Returns:
+      (front RasterIndex, back RasterIndex), both with the shared overflow.
+    """
+    dev = clip_front.device
+    T = clip_front.shape[0]
+    K = window
+    Tp = 1 << max(T - 1, 1).bit_length()
+    if Tp != T:
+        pad = Tp - T
+        clip_front = torch.cat([clip_front,
+                                clip_front.new_zeros((pad, 3, 4))])
+        clip_back = torch.cat([clip_back, clip_back.new_zeros((pad, 3, 4))])
+        valid_tris = torch.cat([valid_tris,
+                                valid_tris.new_zeros((pad,))])
+
+    w = clip_front[..., 3]
+    w_ok = (w > 1e-8).all(-1) & valid_tris
+    w_safe = torch.where(w.abs() < 1e-8, torch.ones_like(w), w)
+    ndc = clip_front[..., :3] / w_safe[..., None]
+    pz_b = clip_back[..., 2] / w_safe
+
+    px = (ndc[..., 0] + 1.0) * (0.5 * width) - 0.5           # (Tp, 3)
+    py = (1.0 - ndc[..., 1]) * (0.5 * height) - 0.5
+    pz = ndc[..., 2]
+
+    ax, ay = px[:, 0], py[:, 0]
+    bx, by = px[:, 1], py[:, 1]
+    cx, cy = px[:, 2], py[:, 2]
+    area2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    side = area2 > 0.0                  # CW in the front view -> back
+    tri_ok = w_ok & (area2.abs() > 1e-12)
+    iw = 1.0 / w_safe
+    pz_sel = torch.where(side[:, None], pz_b, pz)
+
+    min_x = torch.ceil(px.min(-1).values).long()
+    min_y = torch.ceil(py.min(-1).values).long()
+    too_big = ((px.max(-1).values > min_x.to(px.dtype) + (K - 1))
+               | (py.max(-1).values > min_y.to(py.dtype) + (K - 1)))
+    is_big = tri_ok & too_big
+    tri_main = tri_ok & ~is_big if big_tri_capacity > 0 else tri_ok
+
+    slot = torch.arange(K * K, device=dev)
+    cy_d = min_y[None, :] + (slot // K)[:, None]             # (K*K, Tp)
+    cx_d = min_x[None, :] + (slot % K)[:, None]
+    in_img = (cx_d >= 0) & (cx_d < width) & (cy_d >= 0) & (cy_d < height)
+    fx_d = cx_d.to(px.dtype)
+    fy_d = cy_d.to(py.dtype)
+    eps = -1e-6
+    inv_area = 1.0 / _safe_div_den(area2)
+    w0_d = ((cx - bx)[None, :] * (fy_d - by[None, :])
+            - (cy - by)[None, :] * (fx_d - bx[None, :])) * inv_area[None, :]
+    w1_d = ((ax - cx)[None, :] * (fy_d - cy[None, :])
+            - (ay - cy)[None, :] * (fx_d - cx[None, :])) * inv_area[None, :]
+    w2_d = 1.0 - w0_d - w1_d
+    z_d = (w0_d * pz_sel[None, :, 0] + w1_d * pz_sel[None, :, 1]
+           + w2_d * pz_sel[None, :, 2])
+    ok_d = ((w0_d >= eps) & (w1_d >= eps) & (w2_d >= eps) & in_img
+            & (z_d >= -1.0) & (z_d <= 1.0) & tri_main[None, :])
+
+    npix = height * width
+    col_sel = torch.where(side[None, :], (width - 1) - cx_d, cx_d)
+    pix_d = (torch.where(side[None, :], npix, 0) + cy_d * width
+             + col_sel).reshape(-1)
+    valid = ok_d.reshape(-1)
+    z_flat = z_d.reshape(-1)
+    w0_flat = w0_d.reshape(-1)
+    w1_flat = w1_d.reshape(-1)
+
+    max_c = max_candidates if max_candidates > 0 else max(2 * T, 1 << 17)
+    cand_of, n_covered, c_live = compact_mask_indices(valid, max_c)
+    cand_of = cand_of.long()
+    overflow = n_covered > max_c
+    pix_c = torch.where(c_live, pix_d[cand_of],
+                        torch.full_like(cand_of, 2 * npix))
+    inf = float("inf")
+    z_c = torch.where(c_live, z_flat[cand_of],
+                      torch.full_like(z_flat[cand_of], inf))
+
+    zbuf = torch.full((2 * npix + 1,), inf, dtype=z_c.dtype, device=dev)
+    zbuf = zbuf.scatter_reduce(0, pix_c, z_c, reduce="amin")
+    is_winner = (z_c == zbuf[pix_c]) & (z_c < inf)
+    win_ids = torch.where(is_winner, cand_of,
+                          torch.full_like(cand_of, _INT_MAX))
+    winner = torch.full((2 * npix + 1,), _INT_MAX, dtype=torch.int64,
+                        device=dev)
+    winner = winner.scatter_reduce(0, pix_c, win_ids, reduce="amin")
+
+    outs = []
+    for s in range(2):
+        wv = winner[s * npix:(s + 1) * npix]
+        mask = wv != _INT_MAX
+        safe_winner = torch.where(mask, wv, torch.zeros_like(wv))
+        tri_of = safe_winner & (Tp - 1)
+        # ortho pair: w == 1, so the weights are the screen barycentrics
+        w0_w = w0_flat[safe_winner]
+        w1_w = w1_flat[safe_winner]
+        bw = torch.stack([w0_w, w1_w, 1.0 - w0_w - w1_w], dim=-1)
+        if 0 < max_c < npix:
+            bw = torch.where(mask[:, None], bw, torch.zeros_like(bw))
+        out_depth = torch.where(mask, zbuf[s * npix:(s + 1) * npix],
+                                torch.full_like(mask, inf, dtype=z_c.dtype))
+
+        if big_tri_capacity > 0:
+            if s == 0:
+                bpx, bpy, bpz = px, py, pz
+                barea, bbig = area2, is_big & ~side
+            else:
+                bpx = (width - 1.0) - px
+                bpy, bpz = py, pz_b
+                barea, bbig = -area2, is_big & side
+            (big_tri, big_bw, big_depth, big_mask,
+             big_over) = _big_triangle_pass(bpx, bpy, bpz, iw, barea, bbig,
+                                            big_tri_capacity, height, width)
+            overflow = overflow | big_over
+            take_big = big_mask & (big_depth < out_depth)
+            tri_of = torch.where(take_big, big_tri, tri_of)
+            bw = torch.where(take_big[:, None], big_bw, bw)
+            out_depth = torch.where(take_big, big_depth, out_depth)
+            mask = mask | big_mask
+        else:
+            overflow = overflow | is_big.any()
+
+        outs.append(RasterIndex(
+            tri=tri_of, bw=bw, depth=out_depth.reshape(height, width),
+            mask=mask.reshape(height, width), overflow=overflow,
+            n_candidates=n_covered,
+            n_big=(is_big & (side if s else ~side)).sum().to(torch.int32)))
+    return outs[0]._replace(overflow=overflow), \
+        outs[1]._replace(overflow=overflow)

@@ -1,0 +1,109 @@
+"""Full-size capture subject on the toy body (counterpart of
+avatarcap_tpu/tools/bench_workloads.py:22-106: ``toy_avatar_statics`` and
+``build_capture_grid``).
+
+The capture workload of the repo: a 384 x 384 x 128 canonical grid
+(~18.9 M nodes) over the toy body densified to 6,752 vertices (real SMPL
+has 6,890; KNN cost scales with the vertex count).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from avatarcap_tpu_torch.body.smpl import canonical_pose, smpl_forward
+from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
+from avatarcap_tpu_torch.ops.knn import knn
+from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
+from avatarcap_tpu_torch.pipeline.capture import CaptureGrid
+from avatarcap_tpu_torch.utils.toy_body import make_toy_smpl_params
+
+
+def toy_avatar_statics(dense: bool = True, device="cpu"):
+    """Toy body + AvatarStatics at benchmark fidelity.
+
+    Returns (params, statics, cano_vertices (V, 3) numpy)."""
+    kw = dict(n_lat=77, n_lon=90) if dense else {}
+    params = make_toy_smpl_params(**kw)
+    cano = smpl_forward(params, torch.as_tensor(canonical_pose()),
+                        torch.zeros(10))
+    v = cano.vertices.numpy()
+    # cano bounds: AABB + 5 cm in x/y, 15 cm in z
+    lo = v.min(0) - np.array([0.05, 0.05, 0.15], np.float32)
+    hi = v.max(0) + np.array([0.05, 0.05, 0.15], np.float32)
+    # a 2.5 cm weight volume with uniform root weights
+    res_w = np.maximum(((hi - lo) / 0.025).astype(np.int32), 2)
+    wv = np.zeros(tuple(res_w) + (params.num_joints,), np.float32)
+    wv[..., 0] = 1.0
+    statics = AvatarStatics(
+        weight_volume=torch.as_tensor(wv),
+        cano_smpl_vertices=cano.vertices,
+        smpl_skinning_weights=torch.as_tensor(params.weights),
+        cano_bounds=torch.as_tensor(np.stack([lo, hi])),
+        cano_smpl_center=torch.as_tensor(0.5 * (lo + hi))).to(device)
+    return params, statics, v
+
+
+def random_avatar(generator: torch.Generator) -> GeoTexAvatar:
+    """GeoTexAvatar at its published widths with every weight drawn from
+    ``generator``: LeCun-uniform weights, U(-0.1, 0.1) biases, BatchNorm
+    statistics around (0, 1). The offset head is U(+-0.002), so warps are
+    a few cm (a trained warp's scale), and the geometry head U(+-0.1), so
+    the field is not the +-1e-5 init noise around the iso level.
+    Untrained all the same: its iso-surface is a random field."""
+    model = GeoTexAvatar()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 1:
+                bound = (3.0 / p[0].numel()) ** 0.5
+                p.uniform_(-bound, bound, generator=generator)
+            elif ".bn" in name and name.endswith(".weight"):
+                p.uniform_(0.8, 1.2, generator=generator)
+            else:
+                p.uniform_(-0.1, 0.1, generator=generator)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.uniform_(-0.1, 0.1, generator=generator)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=generator)
+        head = model.warping_field.out_layer_coord_affine
+        head.weight.uniform_(-0.002, 0.002, generator=generator)
+        head.bias.uniform_(-0.002, 0.002, generator=generator)
+        model.cano_template.geo_mlp.fc_list[1].weight.uniform_(
+            -0.1, 0.1, generator=generator)
+    return model.eval()
+
+
+def build_capture_grid(statics: AvatarStatics,
+                       vol_res: Tuple[int, int, int] = (384, 384, 128),
+                       pad_to: int = 65536):
+    """Near-body compacted grid at capture resolution, built on the
+    statics' device: valid = within 10 cm of a body vertex; the prior
+    outside the band is a radial inside test against the nearest vertex
+    (+1 inside, -1 outside). Returns (CaptureGrid, n_valid)."""
+    X, Y, Z = vol_res
+    dev = statics.cano_bounds.device
+    bounds = statics.cano_bounds
+    verts = statics.cano_smpl_vertices
+    center = statics.cano_smpl_center
+    lin = [torch.linspace(0.0, 1.0, r, device=dev) for r in vol_res]
+    g = torch.stack(torch.meshgrid(*lin, indexing="ij"), -1).reshape(-1, 3)
+    pts = g * (bounds[1] - bounds[0]) + bounds[0]
+    del g
+    d2, idx1 = knn(pts, verts, k=1, chunk=65536)
+    valid = d2[:, 0] < 0.1 ** 2
+    inside = ((pts - center).norm(dim=-1)
+              < (verts[idx1[:, 0]] - center).norm(dim=-1))
+    prior = torch.where(valid, torch.zeros((), device=dev),
+                        2.0 * inside.float() - 1.0)
+    n_valid = int(valid.sum())
+    capacity = n_valid + ((-n_valid) % pad_to)
+    idx, _, live = compact_mask_indices(valid, capacity)
+    valid_idx = torch.where(live, idx, X * Y * Z).to(torch.int32)
+    valid_pts = torch.where(live[:, None], pts[idx.long()],
+                            torch.zeros((), device=dev))
+    return CaptureGrid(valid_pts, valid_idx, prior, tuple(vol_res)), n_valid

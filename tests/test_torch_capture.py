@@ -1,0 +1,284 @@
+"""The slice as a whole: the port's avatar-only capture frame,
+process_frame(item, w_recon=False, w_nerf=False), against the JAX frame
+on the fixture of tests/test_capture.py (48 x 48 x 32 grid, 128^2 renders,
+max_tris 1<<15, max_active 1<<13), rebuilt here.
+
+The geometry head's fc1_kernel gets numpy-drawn O(0.1) values on both
+sides, so the iso-surface is a real crossing and not the +-1e-5 init
+noise. With use_fused_query=False both sides run the f32 module path and
+compare tightly: equal triangle counts and overflow, slot-wise vertices
+and normals (ascending compaction makes slots comparable), the live mesh,
+and the canonical normal and Phong images outside the raster's eps-slack
+boundary band. With use_fused_query=True the port runs K1's plain version
+(bf16), held against a JAX frame whose grid query runs the Pallas K1 in
+interpret mode through the JAX package's own stage functions, at
+kernel-level tolerances.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from conftest import make_toy_smpl_params
+
+OPTS = dict(max_tris=1 << 15, max_active=1 << 13, render_res=128,
+            raster_window=6, fusion_iters=4, n_samples=4)
+
+
+@pytest.fixture(scope="module")
+def env():
+    from avatarcap_tpu.body.smpl import smpl_forward, canonical_pose
+    from avatarcap_tpu.models.avatar import GeoTexAvatar
+    from avatarcap_tpu.ops.inside import points_inside_mesh
+    from avatarcap_tpu.ops.knn import knn
+    from avatarcap_tpu.pipeline.avatar import AvatarStatics
+    from avatarcap_tpu.pipeline.capture import CaptureGrid
+
+    params = make_toy_smpl_params()
+    cano = smpl_forward(params, jnp.asarray(canonical_pose()),
+                        jnp.asarray(np.zeros(10, np.float32)))
+    v = np.asarray(cano.vertices)
+    lo = v.min(0) - np.array([0.05, 0.05, 0.15], np.float32)
+    hi = v.max(0) + np.array([0.05, 0.05, 0.15], np.float32)
+    wv = np.zeros((16, 16, 16, params.num_joints), np.float32)
+    wv[..., 0] = 1.0
+    statics_np = dict(weight_volume=wv, cano_smpl_vertices=v,
+                      smpl_skinning_weights=np.asarray(params.weights),
+                      cano_bounds=np.stack([lo, hi]),
+                      cano_smpl_center=(0.5 * (lo + hi)).astype(np.float32))
+
+    vol_res = (48, 48, 32)
+    lin = [np.linspace(0, 1, r, dtype=np.float32) for r in vol_res]
+    g = np.stack(np.meshgrid(*lin, indexing="ij"), -1).reshape(-1, 3)
+    pts = g * (hi - lo) + lo
+    d2, _ = knn(jnp.asarray(pts), cano.vertices, k=1)
+    valid_flag = np.asarray(d2[:, 0] < 0.1 ** 2)
+    inside = np.asarray(points_inside_mesh(jnp.asarray(pts),
+                                           jnp.asarray(v[params.faces])))
+    prior = np.where(valid_flag, 0.0,
+                     2.0 * inside.astype(np.float32) - 1.0).astype(np.float32)
+    idx = np.where(valid_flag)[0].astype(np.int32)
+    pad = (-len(idx)) % 4096
+    grid_np = dict(valid_pts=np.concatenate([pts[idx],
+                                             np.zeros((pad, 3), np.float32)]),
+                   valid_idx=np.pad(idx, (0, pad), constant_values=len(pts)),
+                   prior_volume=prior)
+
+    module = GeoTexAvatar(if_type="sdf")
+    variables = jax.tree.map(
+        lambda a: np.asarray(a, np.float32),
+        jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8, 3)),
+                             jnp.zeros((1, 128, 128, 6)),
+                             jnp.asarray(statics_np["cano_smpl_center"])[None]))
+    rs = np.random.RandomState(11)
+    variables["params"]["cano_template"]["geo_mlp"]["fc1_kernel"] = \
+        rs.uniform(-0.1, 0.1, (128, 2)).astype(np.float32)
+
+    item = {
+        "live_smpl_v": v.astype(np.float32),
+        "cano2live_jnt_mats": np.tile(np.eye(4, dtype=np.float32),
+                                      (params.num_joints, 1, 1)),
+        "smpl_pos_map": (rs.standard_normal((128, 128, 6)) * 0.1
+                         ).astype(np.float32),
+    }
+    # a non-identity pose so the live mesh differs from the canonical one
+    item["cano2live_jnt_mats"][:, :3, 3] = rs.uniform(-0.05, 0.05,
+                                                      (params.num_joints, 3))
+    jstatics = AvatarStatics(**{k: jnp.asarray(a)
+                                for k, a in statics_np.items()})
+    jgrid = CaptureGrid(jnp.asarray(grid_np["valid_pts"]),
+                        jnp.asarray(grid_np["valid_idx"]),
+                        jnp.asarray(grid_np["prior_volume"]), vol_res)
+    return dict(module=module, variables=variables, jstatics=jstatics,
+                jgrid=jgrid, statics_np=statics_np, grid_np=grid_np,
+                vol_res=vol_res, item=item)
+
+
+def _port_capture(env, fused, **extra):
+    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+    from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureGrid,
+                                                      CaptureOptions)
+    from avatarcap_tpu_torch.weights import avatar_state_dict_from_jax
+    port = GeoTexAvatar()
+    port.load_state_dict(avatar_state_dict_from_jax(env["variables"]))
+    statics = AvatarStatics(**{k: torch.as_tensor(np.array(a))
+                               for k, a in env["statics_np"].items()})
+    g = env["grid_np"]
+    grid = CaptureGrid(torch.as_tensor(g["valid_pts"]),
+                       torch.as_tensor(g["valid_idx"]),
+                       torch.as_tensor(g["prior_volume"]), env["vol_res"])
+    opts = CaptureOptions(use_fused_query=fused, **OPTS, **extra)
+    return AvatarCapture(port, statics, grid, options=opts, device="cpu")
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _image_band_mask(ma, mb):
+    """Pixels where both masks agree and so do all 8 neighbours: the
+    comparison region outside the eps-slack boundary band."""
+    agree = (ma == mb)
+    pad = np.pad(agree, 1, constant_values=True)
+    ok = np.ones_like(agree)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ok &= pad[1 + dy:1 + dy + agree.shape[0],
+                      1 + dx:1 + dx + agree.shape[1]]
+    return ok
+
+
+def _close_mostly(a, b, tight, loose, frac=0.99):
+    """Every element within `loose`, and `frac` of the rows within
+    `tight`."""
+    np.testing.assert_allclose(a, b, atol=loose)
+    rows = np.all(np.abs(a - b) <= tight, axis=-1)
+    assert rows.mean() >= frac, rows.mean()
+
+
+def _compare_images(got, ref, atol, loose):
+    gm = np.abs(got["front_avatar_normal"].numpy()).sum(-1) > 0
+    rm = np.abs(_np(ref["front_avatar_normal"])).sum(-1) > 0
+    assert rm.sum() > 200
+    assert (gm != rm).sum() <= max(3, int(2e-3 * rm.sum()))
+    for key in ("front_avatar_normal", "back_avatar_normal"):
+        a, b = got[key].numpy(), _np(ref[key])
+        ma, mb = np.abs(a).sum(-1) > 0, np.abs(b).sum(-1) > 0
+        ok = _image_band_mask(ma, mb)
+        _close_mostly(a[ok], b[ok], atol, loose)
+    for side in (0, 1):
+        a = got["cano_phong"][side].numpy()
+        b = _np(ref["cano_phong"][side])
+        ma, mb = np.any(a != 1.0, -1), np.any(b != 1.0, -1)
+        ok = _image_band_mask(ma, mb)
+        _close_mostly(a[ok], b[ok], atol, loose)
+
+
+@pytest.mark.parametrize("extra", [
+    {},                                                  # the main path
+    dict(hierarchical_query=False, skinning_mode="knn")],
+    ids=["hierarchical-volume_skinning", "flat-knn_skinning"])
+def test_frame_f32_path_matches_jax(env, extra):
+    from avatarcap_tpu.pipeline.capture import AvatarCapture, CaptureOptions
+    jcap = AvatarCapture(env["module"], env["variables"], env["jstatics"],
+                         env["jgrid"],
+                         options=CaptureOptions(use_fused_query=False,
+                                                **OPTS, **extra))
+    ref = jcap.process_frame(env["item"], w_recon=False, w_nerf=False)
+    got = _port_capture(env, fused=False, **extra).process_frame(
+        env["item"], w_recon=False, w_nerf=False)
+
+    rm, gm = ref["cano_mesh"], got["cano_mesh"]
+    n = int(rm.num_tris)
+    assert int(gm.num_tris) == n > 100
+    assert bool(got["overflow"]) == bool(_np(ref["overflow"]))
+    assert bool(gm.overflow) == bool(_np(rm.overflow))
+    # slot-wise. The f32 fields agree to ~1e-6, but the extractor (JAX
+    # and port alike) carries the cube corner values as bf16 for the
+    # within-edge interpolation, so a 1e-6 difference can flip one
+    # corner's bf16 rounding: that vertex moves along its edge by at most
+    # 2^-8 of a voxel (~1e-4 m here) and its normal by ~2^-8. All other
+    # slots agree to float32 rounding.
+    for a, b, tight, loose in (
+            (gm.vertices, rm.vertices, 1e-5, 2e-4),
+            (gm.normals, rm.normals, 1e-4, 2e-2),
+            (got["live_mesh"].vertices, ref["live_mesh"].vertices, 1e-5,
+             2e-4),
+            (got["live_mesh"].normals, ref["live_mesh"].normals, 1e-4,
+             2e-2)):
+        _close_mostly(a.numpy(), _np(b), tight, loose)
+    _compare_images(got, ref, atol=1e-4, loose=2e-2)
+
+
+def test_frame_fused_path_matches_jax_kernel(env):
+    """Port K1 (plain version on the CPU) against a JAX frame whose grid
+    query runs the interpret-mode Pallas K1 (the JAX capture disables the
+    fused path off the TPU, so the test assembles that frame from the JAX
+    package's own stage functions)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from avatarcap_tpu.ops.pallas_query import warp_template_query_fused
+    from avatarcap_tpu.pipeline.avatar import (compute_pose_features,
+                                               grid_pose_features,
+                                               pack_fused_query_weights)
+    from avatarcap_tpu.pipeline.capture import (CaptureOptions, _extract_mesh,
+                                                build_grid_hierarchy,
+                                                hierarchical_volume)
+    o = CaptureOptions(**OPTS)
+    st = env["jstatics"]
+    g = build_grid_hierarchy(env["jgrid"], st.cano_bounds)
+    packed = pack_fused_query_weights(env["variables"])
+    feat, _ = compute_pose_features(env["module"], env["variables"],
+                                    jnp.asarray(env["item"]["smpl_pos_map"])[None])
+    cols = grid_pose_features(feat, st, g.vol_res, dtype=jnp.bfloat16,
+                              columns=True)
+    Z = g.vol_res[2]
+
+    def vf(pts, fidx):
+        return warp_template_query_fused(packed["offset"], packed["template"],
+                                         pts, cols[fidx // Z])["occ"][:, 0]
+
+    with pltpu.force_tpu_interpret_mode():
+        vol, q_ovf = hierarchical_volume(vf, g, st.cano_bounds, g.c_prior,
+                                         g.prior_volume, o.iso_value,
+                                         o.hier_alpha, o.refine_capacity)
+    ref = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
+                        o.max_active, o.normal_mode)
+
+    cap = _port_capture(env, fused=True)
+    got = cap.process_frame(env["item"], w_recon=False, w_nerf=False)
+    gm = got["cano_mesh"]
+    n = int(ref.num_tris)
+    # bf16 kernel noise may move an iso crossing across a grid node in a
+    # handful of cells: counts agree to 0.5%, and the meshes' shared
+    # prefix of slots stays within a bf16-level vertex tolerance
+    assert abs(int(gm.num_tris) - n) <= max(2, n // 200)
+    assert bool(gm.overflow) == bool(_np(ref.overflow) | _np(q_ovf))
+    # compare the occupancy volumes the meshes come from
+    from avatarcap_tpu_torch.pipeline.capture import hierarchical_volume as thv
+    from avatarcap_tpu_torch.pipeline.avatar import (
+        compute_pose_features as tpf, grid_pose_features as tgpf)
+    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
+    with torch.inference_mode():
+        tfeat = tpf(cap.avatar, torch.as_tensor(env["item"]["smpl_pos_map"])[None])
+        tcols = tgpf(tfeat, cap.statics, cap.grid.vol_res,
+                     dtype=torch.bfloat16, columns=True)
+        pk = cap.packed_query
+        tvol, _ = thv(lambda p, f: warp_template_query(
+            pk["offset"], pk["template"], p, tcols[f.long() // Z])["occ"][:, 0],
+            cap.grid, cap.statics.cano_bounds, cap.grid.c_prior,
+            cap.grid.prior_volume, o.iso_value, o.hier_alpha,
+            o.refine_capacity)
+    np.testing.assert_allclose(tvol.numpy(), _np(vol), atol=5e-3)
+    k = min(n, int(gm.num_tris))
+    same = np.all(np.abs(gm.vertices.numpy()[:3 * k] - _np(ref.vertices)[:3 * k])
+                  < 2e-3, axis=-1)
+    assert same.mean() > 0.95
+
+
+def test_unported_paths_raise(env):
+    cap = _port_capture(env, fused=False)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        cap.process_frame(env["item"], w_recon=True)
+    with pytest.raises(NotImplementedError, match="K3"):
+        cap.process_frame(env["item"], w_recon=False, w_nerf=True)
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureOptions)
+    with pytest.raises(NotImplementedError):
+        AvatarCapture(cap.avatar, cap.statics, cap.grid,
+                      options=dataclasses.replace(cap.opt,
+                                                  normal_mode="mc_edge"),
+                      device="cpu")
+
+
+def test_entry_point_needs_a_card_unless_cpu_is_asked(env, monkeypatch):
+    from avatarcap_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"

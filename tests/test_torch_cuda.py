@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card (marked ``cuda``; each test skips
+without a CUDA device). This file imports neither JAX nor the JAX package,
+so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+K1's tolerances against its plain version are those of the CPU test
+against the Pallas kernel (tests/test_torch_fused_query.py): both versions
+sum bf16 products in f32 in different orders, so a bf16 rounding of an
+activation can flip.
+"""
+
+import pytest
+import torch
+
+ATOL = {"occ": 5e-3, "alpha": 5e-3, "rgb": 5e-3, "offset": 5e-4}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def packed(card):
+    from avatarcap_tpu_torch.pipeline.avatar import pack_fused_query_weights
+    from avatarcap_tpu_torch.tools.bench_workloads import random_avatar
+    model = random_avatar(torch.Generator().manual_seed(0)).to(card)
+    with torch.no_grad():
+        return pack_fused_query_weights(model)
+
+
+def _inputs(n, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    pts = torch.rand((n, 3), generator=gen) * 1.6 - 0.8
+    pf = torch.randn((n, 64), generator=gen)
+    return pts.to(device), pf.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 5000])
+def test_k1_kernel_matches_plain(card, packed, n):
+    from avatarcap_tpu_torch.ops.fused_query import (
+        warp_template_query, warp_template_query_plain)
+    pts, pf = _inputs(n, card, seed=n)
+    before = warp_template_query.launches
+    got = warp_template_query(packed["offset"], packed["template"], pts, pf)
+    torch.cuda.synchronize()
+    assert warp_template_query.launches == before + 1
+    ref = warp_template_query_plain(packed["offset"], packed["template"],
+                                    pts, pf)
+    for k, v in ref.items():
+        assert got[k].shape == v.shape and got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k], v, atol=ATOL[k], rtol=0)
+
+
+@pytest.mark.cuda
+def test_k1_empty_and_invalid_inputs(card, packed):
+    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
+    pts, pf = _inputs(0, card)
+    before = warp_template_query.launches
+    out = warp_template_query(packed["offset"], packed["template"], pts, pf)
+    assert out["occ"].shape == (0, 1)
+    assert warp_template_query.launches == before
+    pts, pf = _inputs(10, card)
+    f32_template = tuple(t.float() for t in packed["template"])
+    with pytest.raises(ValueError):
+        warp_template_query(packed["offset"], f32_template, pts, pf)
+    with pytest.raises(ValueError):
+        warp_template_query(packed["offset"], packed["template"], pts,
+                            pf[:, :32])
+
+
+@pytest.mark.cuda
+def test_avatar_frame_on_card(card):
+    """The avatar-only frame on a small subject: two K1 launches, and the
+    same mesh size as the plain version on the CPU."""
+    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureOptions)
+    from avatarcap_tpu_torch.tools.bench_workloads import (
+        build_capture_grid, random_avatar, toy_avatar_statics)
+    tris = {}
+    for dev in (card, torch.device("cpu")):
+        params, statics, v = toy_avatar_statics(dense=False, device=dev)
+        grid, _ = build_capture_grid(statics, (48, 48, 32), pad_to=4096)
+        gen = torch.Generator().manual_seed(1)
+        cap = AvatarCapture(random_avatar(gen), statics, grid,
+                            options=CaptureOptions(max_tris=1 << 15,
+                                                   max_active=1 << 13,
+                                                   render_res=128),
+                            device=dev)
+        item = {"live_smpl_v": v,
+                "cano2live_jnt_mats": torch.eye(4).repeat(
+                    params.num_joints, 1, 1),
+                "smpl_pos_map": torch.randn((128, 128, 6), generator=gen)
+                * 0.1}
+        before = warp_template_query.launches
+        res = cap.process_frame(item, w_recon=False, w_nerf=False)
+        launches = warp_template_query.launches - before
+        assert launches == (2 if dev.type == "cuda" else 0)
+        assert torch.isfinite(res["live_mesh"].vertices).all()
+        tris[dev.type] = int(res["cano_mesh"].num_tris)
+    assert tris["cuda"] > 0
+    assert abs(tris["cuda"] - tris["cpu"]) <= 0.01 * tris["cpu"]
