@@ -139,3 +139,22 @@ def skin_points_by_volume(points: torch.Tensor, weight_volume: torch.Tensor,
     if return_pt_mats:
         return out, m16
     return out
+
+
+def mats16_inv_rotate(m16: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Apply the inverse of the 3x3 part of flat (..., 16) mats to
+    (..., 3) vectors: closed-form adjugate over the determinant (clamped
+    to 1 below 1e-20), exact for blended, non-orthogonal LBS matrices."""
+    a, b, c = m16[..., 0], m16[..., 1], m16[..., 2]
+    d, e, f = m16[..., 4], m16[..., 5], m16[..., 6]
+    g, h, i = m16[..., 8], m16[..., 9], m16[..., 10]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() < 1e-20, torch.ones_like(det), det)
+    x, y, z = vecs[..., 0], vecs[..., 1], vecs[..., 2]
+    ox = A * x - (b * i - c * h) * y + (b * f - c * e) * z
+    oy = B * x + (a * i - c * g) * y - (a * f - c * d) * z
+    oz = C * x - (a * h - b * g) * y + (a * e - b * d) * z
+    return torch.stack([ox, oy, oz], dim=-1) * inv_det[..., None]

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kTile = 128;                   // points per block
@@ -89,15 +91,6 @@ __device__ __forceinline__ float activate(float x) {
   }
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Padded activation column kp -> real weight column, or -1 for a zero pad.
 // Columns [0, SEG0) map to themselves, [SEG0, PAD0) are padding, and
 // [PAD0, ...) map to SEG0, SEG0 + 1, ... while below KREAL.
@@ -125,15 +118,6 @@ __device__ __forceinline__ uint32_t load_b_pair(const __nv_bfloat16* __restrict_
     const uint32_t hi = k1 >= 0 ? __ldg(reinterpret_cast<const unsigned short*>(row + k1)) : 0u;
     return lo | (hi << 16);
   }
-}
-
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* in,
-                                       int row, int col) {
-  const __nv_bfloat16* p = in + row * kStride + col;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * kStride);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * kStride + 8);
 }
 
 // One hidden layer: out[:, co:co+O] = bf16(act(in[:, ci:ci+KPAD] W^T + b)).
@@ -178,7 +162,7 @@ __device__ __forceinline__ void dense_layer(const __nv_bfloat16* in, int ci,
 #pragma unroll
     for (int m = 0; m < kMTiles; ++m) {
       uint32_t a[4];
-      load_a(a, in, m * 16 + g, ci + ks * 16 + 2 * t);
+      load_a<kStride>(a, in, m * 16 + g, ci + ks * 16 + 2 * t);
 #pragma unroll
       for (int n = 0; n < kNT; ++n) mma16816(acc[m][n], a, bcur[n][0], bcur[n][1]);
     }
@@ -223,7 +207,7 @@ __device__ __forceinline__ void head_layer(const __nv_bfloat16* in, int ci,
     const uint32_t b0 = load_b_pair<K, K, K>(w, g, O, kb);
     const uint32_t b1 = load_b_pair<K, K, K>(w, g, O, kb + 8);
     uint32_t a[4];
-    load_a(a, in, warp * 16 + g, ci + ks * 16 + 2 * t);
+    load_a<kStride>(a, in, warp * 16 + g, ci + ks * 16 + 2 * t);
     mma16816(acc, a, b0, b1);
   }
   const int row = warp * 16 + g;

@@ -1,0 +1,245 @@
+"""Canonical normal fusion (counterpart of
+avatarcap_tpu/fusion/normal_fusion.py: ``lift_image_normals``,
+``merge_normal_images`` and ``merge_normal_images_cover``).
+
+- The lift rasterizes the live mesh's positions from the capture camera
+  (a perspective index pass), keeps the vertices whose projected
+  position-buffer sample lies within 5 cm of themselves, samples the
+  image normals there and rotates them back to canonical space.
+- The merge is the reference's two-phase optimisation: 50 Adam steps
+  (lr 1e-2) on a 64 x 64 axis-angle rotation grid, then 50 (lr 1e-1) on
+  the normal image, under ``torch.autograd``. The Adam step is written
+  out in optax's order, so the 100-step trajectory stays close to the JAX
+  package's. Then the distance-transform blend and the face box.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from avatarcap_tpu_torch.body.skinning import mats16_inv_rotate
+from avatarcap_tpu_torch.ops.morphology import distance_transform_l1, erode_3x3
+from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
+from avatarcap_tpu_torch.render.raster import rasterize
+
+
+def lift_image_normals(live_tris: torch.Tensor, valid_tris: torch.Tensor,
+                       normal_map: torch.Tensor, vert_mats16: torch.Tensor,
+                       mv: torch.Tensor, proj: torch.Tensor,
+                       fx: float, fy: float, cx: float, cy: float,
+                       img_h: int, img_w: int, window: int = 4,
+                       big_tris: int = 0, max_candidates: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Image-space normals -> per-soup-vertex canonical normals.
+
+    Args:
+      live_tris: (T, 3, 3) live-space triangle soup; valid_tris: (T,).
+      normal_map: (img_h, img_w, 3) image normals (camera convention).
+      vert_mats16: (3T, 16) flat per-vertex cano->live skinning mats.
+      mv: (4, 4) world -> camera; proj: (4, 4) perspective projection.
+    Returns:
+      ((T, 3, 3) canonical normals, 0 where invisible or invalid; () bool
+      overflow of the position pass).
+    """
+    T = live_tris.shape[0]
+    verts = live_tris.reshape(-1, 3)
+
+    # live position pass
+    mvp = proj @ mv
+    vh = torch.cat([live_tris, torch.ones_like(live_tris[..., :1])], dim=-1)
+    clip = torch.einsum("ij,tvj->tvi", mvp, vh)
+    pos_pass = rasterize(clip, live_tris, valid_tris, img_h, img_w,
+                         window=window, big_tri_capacity=big_tris,
+                         max_candidates=max_candidates)
+
+    # project the vertices; visible where the position buffer agrees.
+    # Nearest sample (align_corners=True, border clamp) of both maps in one
+    # 6-channel row gather.
+    cam = torch.einsum("ij,nj->ni", mv[:3, :3], verts) + mv[:3, 3]
+    gx = 2.0 * ((cam[:, 0] / cam[:, 2] * fx + cx) / img_w) - 1.0
+    gy = 2.0 * ((cam[:, 1] / cam[:, 2] * fy + cy) / img_h) - 1.0
+    xpix = torch.round((gx + 1.0) * 0.5 * (img_w - 1)).to(torch.int64)
+    ypix = torch.round((gy + 1.0) * 0.5 * (img_h - 1)).to(torch.int64)
+    xpix = xpix.clamp(0, img_w - 1)
+    ypix = ypix.clamp(0, img_h - 1)
+    both = torch.cat([pos_pass.attrs, normal_map], dim=-1).reshape(-1, 6)
+    rows = both[ypix * img_w + xpix]                       # (3T, 6)
+    proj_v, proj_n = rows[:, :3], rows[:, 3:]
+    vis = (verts - proj_v).norm(dim=-1) < 0.05
+    valid = vis & (proj_n.norm(dim=-1) > 1e-6)
+
+    # canonicalize: flip y/z, undo the view rotation, then each vertex's
+    # skinning rotation (closed-form inverse on the flat mats)
+    proj_n = proj_n * torch.tensor([1.0, -1.0, -1.0], dtype=proj_n.dtype,
+                                   device=proj_n.device)
+    inv_mv_r = torch.linalg.inv(mv)[:3, :3]
+    proj_n = torch.einsum("ij,nj->ni", inv_mv_r, proj_n)
+    proj_n = mats16_inv_rotate(vert_mats16, proj_n)
+    proj_n = torch.where(valid[:, None], proj_n, torch.zeros_like(proj_n))
+    return proj_n.reshape(T, 3, 3), pos_pass.overflow
+
+
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) align_corners=True bilinear interpolation matrix."""
+    x = np.arange(n_out) * ((n_in - 1) / max(n_out - 1, 1))
+    x0 = np.floor(x).astype(np.int64)
+    x1 = np.minimum(x0 + 1, n_in - 1)
+    t = (x - x0).astype(np.float32)
+    m = np.zeros((n_out, n_in), np.float32)
+    m[np.arange(n_out), x0] += 1.0 - t
+    m[np.arange(n_out), x1] += t
+    return m
+
+
+def _resize_bilinear_ac(img: torch.Tensor, wr: torch.Tensor,
+                        wc: torch.Tensor) -> torch.Tensor:
+    """align_corners=True bilinear resize of (H, W, C) to (h, w, C) by the
+    separable interpolation matrices wr = _resize_matrix(H, h) and
+    wc = _resize_matrix(W, w), on the image's device (a matmul's backward
+    is a matmul)."""
+    out = torch.einsum("Oh,hwc->Owc", wr, img)
+    return torch.einsum("Pw,Owc->OPc", wc, out)
+
+
+def _neighbor_shift(img: torch.Tensor, di: int, dj: int) -> torch.Tensor:
+    """The reference's neighbour image: an affine grid shift of dj (2/H)
+    in x and di (2/W) in y, nearest sampling, align_corners=True. The
+    sampled grid resolves to static per-axis indices (on the 64-grid an
+    edge-clamped one-pixel shift), taken here as slices."""
+    H, W, _ = img.shape
+
+    def axis_indices(n, d, scale):
+        x = np.linspace(-1.0, 1.0, n) + d / (scale / 2.0)
+        u = np.clip((x + 1.0) * 0.5 * (n - 1), 0.0, n - 1)
+        return np.round(u).astype(np.int64)
+
+    def shift_axis(a, dim, idxs):
+        n = a.shape[dim]
+        base = np.arange(n)
+        if np.array_equal(idxs, base):
+            return a
+        if np.array_equal(idxs, np.minimum(base + 1, n - 1)):
+            return torch.cat([a.narrow(dim, 1, n - 1),
+                              a.narrow(dim, n - 1, 1)], dim=dim)
+        if np.array_equal(idxs, np.maximum(base - 1, 0)):
+            return torch.cat([a.narrow(dim, 0, 1),
+                              a.narrow(dim, 0, n - 1)], dim=dim)
+        return a.index_select(dim, torch.as_tensor(idxs, device=a.device))
+
+    out = shift_axis(img, 0, axis_indices(H, di, W))
+    return shift_axis(out, 1, axis_indices(W, dj, H))
+
+
+class _Adam:
+    """optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8 added after the
+    bias-corrected sqrt, eps_root 0), in optax's order of operations. The
+    bias corrections 1 - b^t (optax raises the float32 b to the step count)
+    are filled on the device, so a step makes no host-device copy."""
+
+    def __init__(self, param: torch.Tensor, lr: float):
+        self.lr = lr
+        self.mu = torch.zeros_like(param)
+        self.nu = torch.zeros_like(param)
+        self.count = 0
+
+    def _correction(self, b: float, like: torch.Tensor) -> torch.Tensor:
+        # 1 - b^t in float32, as optax computes it, filled into a 0-d
+        # tensor on the device: a true division, where a Python scalar
+        # divisor would become a multiply by its reciprocal
+        c = np.float32(1) - np.float32(b) ** np.float32(self.count)
+        return torch.full((), float(c), dtype=like.dtype, device=like.device)
+
+    def step(self, param: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+        b1, b2 = 0.9, 0.999
+        self.mu = (1 - b1) * grad + b1 * self.mu
+        self.nu = (1 - b2) * grad ** 2 + b2 * self.nu
+        self.count += 1
+        mu_hat = self.mu / self._correction(b1, param)
+        nu_hat = self.nu / self._correction(b2, param)
+        update = mu_hat / (torch.sqrt(nu_hat) + 1e-8)
+        return param + (-self.lr) * update
+
+
+def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
+                        neck_xy: Sequence[int],
+                        iter_num: int = 100) -> torch.Tensor:
+    """Optimization-based normal fusion.
+
+    Phase 1 (iter_num // 2 steps): Adam(lr 1e-2) on a 64 x 64 axis-angle
+    rotation grid that aligns the rotated avatar normals with the image
+    normals, plus neighbour smoothness. Phase 2 (the rest): Adam(lr 1e-1)
+    on the normal image itself. Then distance-transform blending, and the
+    avatar normals kept in a face box below the neck.
+
+    Runs its own autograd (also when called under ``inference_mode``).
+
+    Args:
+      src_img: (H, H, 3) avatar normals; tar_img: (H, H, 3) canonicalized
+        image normals.
+      neck_xy: (x, y) integer canonical-image neck position.
+    Returns:
+      (H, H, 3) merged normals.
+    """
+    with torch.inference_mode(False), torch.enable_grad():
+        # clones outside inference mode, so autograd may save them
+        src_img = src_img.detach().clone()
+        tar_img = tar_img.detach().clone()
+        H = src_img.shape[0]
+        src_mask = src_img.norm(dim=-1) > 0.0
+        tar_mask = erode_3x3(tar_img.norm(dim=-1) > 0.0, iterations=3)
+        dt = distance_transform_l1(tar_mask.to(torch.float32))
+        valid = (src_mask & tar_mask)[..., None]
+        n_valid = torch.clamp(valid.sum() * 3, min=1)
+        # the 64 -> H resize matrix, built once (not in every step)
+        wr = torch.as_tensor(_resize_matrix(64, H), device=src_img.device)
+
+        def loss_fn(rot_aa, src):
+            rot_mat = axis_angle_to_matrix(_resize_bilinear_ac(rot_aa, wr, wr))
+            rotated = torch.einsum("ijab,ijb->ija", rot_mat, src)
+            sq = torch.square(rotated - tar_img)
+            data = torch.where(valid, sq, torch.zeros_like(sq)).sum() / n_valid
+            smooth = 0.0
+            for di in (-1, 0, 1):
+                for dj in (-1, 0, 1):
+                    if di or dj:
+                        smooth = smooth + torch.mean(torch.square(
+                            _neighbor_shift(rot_aa, di, dj) - rot_aa))
+            return data + 1.0 * smooth
+
+        rot_aa = torch.zeros((64, 64, 3), dtype=src_img.dtype,
+                             device=src_img.device)
+        opt = _Adam(rot_aa, 1e-2)
+        for _ in range(iter_num // 2):
+            rot_aa.requires_grad_(True)
+            g, = torch.autograd.grad(loss_fn(rot_aa, src_img), rot_aa)
+            rot_aa = opt.step(rot_aa.detach(), g)
+
+        src = src_img.detach()          # a new leaf: src_img keeps no grad
+        opt = _Adam(src, 1e-1)
+        for _ in range(iter_num - iter_num // 2):
+            src.requires_grad_(True)
+            g, = torch.autograd.grad(loss_fn(rot_aa, src), src)
+            src = opt.step(src.detach(), g)
+
+        # distance-transform blending
+        dtw = (dt / 5.0)[..., None]
+        init_w = torch.where(dtw > 1.0, 0.0, 1.0)
+        src = (src * dtw + src_img * init_w) / (dtw + init_w)
+
+        # face box rows [neck_y - 90, neck_y), cols [neck_x - 35,
+        # neck_x + 35): the reference's Python slice is empty when either
+        # start is negative, and a stop past the edge clips
+        x, y = int(neck_xy[0]), int(neck_xy[1])
+        if y - 90 >= 0 and x - 35 >= 0:
+            src[y - 90:y, x - 35:x + 35] = src_img[y - 90:y, x - 35:x + 35]
+    return src
+
+
+def merge_normal_images_cover(src_img: torch.Tensor,
+                              tar_img: torch.Tensor) -> torch.Tensor:
+    """Avatar normals overwritten wherever the image normal is valid."""
+    valid = tar_img.norm(dim=-1) > 1e-6
+    return torch.where(valid[..., None], tar_img, src_img)

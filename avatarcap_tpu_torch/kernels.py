@@ -4,7 +4,8 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded through ``ctypes`` -- no PyTorch
 headers, so a build takes seconds. Libraries go to ``build/kernels/`` at
 the root of the checkout (listed in .gitignore) under a name that carries
-a hash of the source and the flags, so a changed source is rebuilt. Builds
+a hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
+a changed source or header is rebuilt. Builds
 happen at first use, or all at once, in parallel, through ``build_all``.
 Nothing is built or loaded at import time.
 """
@@ -22,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-SOURCES = ("warp_template_query",)
+SOURCES = ("warp_template_query", "recon_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,9 +39,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by a hash of its source, the shared
+    headers and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

@@ -8,32 +8,41 @@ avatarcap_tpu/tools/convert_torch_ckpt.py reads.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avatarcap_tpu_torch.models.layers import PointConv1d
+from avatarcap_tpu_torch.models.layers import (PointConv1d,
+                                               WeightNormPointConv1d)
 
 
 class MLP(nn.Module):
     """Residual-concat MLP: hidden layer i in ``res_layers`` consumes
     concat([h, input]); hidden layers use ReLU, or LeakyReLU(0.02) with
-    ``nlactv="leaky_relu"``; the output conv has no activation."""
+    ``nlactv="leaky_relu"``; the output conv has no activation, then a
+    sigmoid with ``last_op="sigmoid"``. ``weight_norm`` applies to the
+    hidden layers only (the reference never weight-norms the output
+    conv)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  inter_channels: Sequence[int], res_layers: Sequence[int] = (),
-                 nlactv: str = "relu"):
+                 nlactv: str = "relu", last_op: Optional[str] = None,
+                 weight_norm: bool = False):
         super().__init__()
+        if last_op not in (None, "sigmoid"):
+            raise ValueError(f"unsupported last_op {last_op!r}")
         self.res_layers = tuple(res_layers)
+        self.last_op = last_op
         self.fc_list = nn.ModuleList()
+        hidden = WeightNormPointConv1d if weight_norm else PointConv1d
         prev = in_channels
         for i, ch in enumerate(inter_channels):
             cin = prev + (in_channels if i in self.res_layers else 0)
             act = (nn.LeakyReLU(0.02) if nlactv == "leaky_relu"
                    else nn.ReLU())
-            self.fc_list.append(nn.Sequential(PointConv1d(cin, ch), act))
+            self.fc_list.append(nn.Sequential(hidden(cin, ch), act))
             prev = ch
         n = len(inter_channels)
         cin = prev + (in_channels if n in self.res_layers else 0)
@@ -48,7 +57,8 @@ class MLP(nn.Module):
             x = self.fc_list[i](x)
         if n in self.res_layers:
             x = torch.cat([x, x0], dim=-1)
-        return self.fc_list[n](x)
+        x = self.fc_list[n](x)
+        return torch.sigmoid(x) if self.last_op == "sigmoid" else x
 
 
 class OffsetDecoder(nn.Module):

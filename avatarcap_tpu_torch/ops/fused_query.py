@@ -1,23 +1,32 @@
-"""Fused warp + template point query: kernel K1 of the port.
+"""Fused point queries: kernels K1 and K2 of the port.
 
-``warp_template_query`` replaces the Pallas kernel
+``warp_template_query`` (K1) replaces the Pallas kernel
 avatarcap_tpu/ops/pallas_query.py:warp_template_query_fused (pallas_call
-at :341, body _warp_template_core :255-296). On a CUDA tensor it launches
-the hand-written Hopper kernel ``csrc/warp_template_query.cu`` (or raises);
-on a CPU tensor it runs ``warp_template_query_plain``, the same arithmetic
-in plain PyTorch. Nothing falls back from the card to the plain version.
+at :341, body _warp_template_core :255-296); ``recon_decode`` (K2)
+replaces :recon_decode_fused (pallas_call at :239, body _recon_kernel
+:188-200). On a CUDA tensor each wrapper launches its hand-written Hopper
+kernel (``csrc/warp_template_query.cu``, ``csrc/recon_decode.cu``) or
+raises; on a CPU tensor it runs its plain version, the same arithmetic in
+plain PyTorch. Nothing falls back from the card to the plain version.
 
-What bounds it on an H100: operations -- ~1.97 MFLOP per point against
-~172 B of input and output per point (3 f32 + 64 bf16 in, 8 f32 out). The
-kernel keeps each 128-point tile's activations in shared memory across all
-20 layers, runs every product on bf16 tensor cores with f32 accumulators,
-and streams the ~2 MB of packed weights from L2 (see the source's header).
+What bounds both on an H100: operations. K1 does ~1.97 MFLOP per point
+against ~172 B of input and output per point (3 f32 + 64 bf16 in, 8 f32
+out); K2 387,072 FLOP against 136 B (33 f32 in, 1 f32 out). Each kernel
+keeps a 128-point tile's activations in shared memory across all its
+layers, runs every product on bf16 tensor cores with f32 accumulators,
+and streams its packed weights (~2 MB, 387 KB) from L2 (see the sources'
+headers).
 
-The contract of both versions (the TPU kernel's rounding points):
+The contract of K1's two versions (the TPU kernel's rounding points):
 points rounded to bf16 only for the decoder input; the PE built from the
 f32 warped points; bf16 operands and f32 accumulation in every product;
 every activation rounded to bf16 after its nonlinearity; softplus =
 logaddexp(x, 0) in f32; eval BatchNorm folded into the packed weights.
+K2's: all 33 inputs rounded to bf16 (z included); bf16 operands and f32
+accumulation in every product, the f32 bias added after; every leaky
+ReLU (0.02) output rounded to bf16; skip concats [h, x] with the bf16
+input; the 128 -> 1 output not rounded before the f32 sigmoid; weight
+norm folded into the packed weights.
 """
 
 from __future__ import annotations
@@ -39,6 +48,11 @@ TEMPLATE_SHAPES = ((256, 63), (256, 256), (256, 256), (256, 256),
                    (256, 256), (128, 256), (3, 128))
 # multiply-adds per point, from the shapes above (985,472 -> ~1.97 MFLOP)
 MACS_PER_POINT = sum(o * i for o, i in OFFSET_SHAPES + TEMPLATE_SHAPES)
+# (out, in) of K2's packed layers: 33 -> 512, [h, x] 545 -> 256,
+# [h, x] 289 -> 128, 128 -> 1
+RECON_IN_DIM = 33
+RECON_SHAPES = ((512, 33), (256, 545), (128, 289), (1, 128))
+RECON_MACS_PER_POINT = sum(o * i for o, i in RECON_SHAPES)     # 193,536
 
 
 def _pack_layer(weight_oi: torch.Tensor, bias: torch.Tensor):
@@ -79,8 +93,25 @@ def pack_template_weights(cano_template) -> Tuple[torch.Tensor, ...]:
     return tuple(packed)
 
 
+def pack_recon_weights(image_decoder) -> Tuple[torch.Tensor, ...]:
+    """ReconNet ``image_decoder`` (weight-normed MLP) -> (w0, b0, ..., w3,
+    b3): (O, I) bf16 weights with w = g v / |v| folded in f32, (O,) f32
+    biases."""
+    fc = image_decoder.fc_list
+    packed = []
+    for i in range(3):
+        conv = fc[i][0]
+        packed += _pack_layer(conv.folded_weight(), conv.bias)
+    packed += _pack_layer(fc[3].weight[:, :, 0], fc[3].bias)
+    return tuple(packed)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, 0.02 * x)
 
 
 def _dot(w: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -121,14 +152,31 @@ def warp_template_query_plain(packed_offset: Sequence[torch.Tensor],
         h = torch.relu(_dot(w[2 * i], h, w[2 * i + 1])).to(bf)
     feat = _dot(w[12], h, w[13]).to(bf)
 
-    g = _dot(w[14], feat, w[15])
-    g = torch.where(g >= 0, g, 0.02 * g).to(bf)
+    g = _leaky(_dot(w[14], feat, w[15])).to(bf)
     geo = _dot(w[16], g, w[17])                                  # (N, 2)
     c = torch.relu(_dot(w[18], feat, w[19])).to(bf)
     c = torch.relu(_dot(w[20], c, w[21])).to(bf)
     rgb = torch.sigmoid(_dot(w[22], c, w[23]))
     return {"occ": geo[:, 0:1], "alpha": torch.relu(geo[:, 1:2]),
             "rgb": rgb, "offset": off}
+
+
+def recon_decode_plain(packed: Sequence[torch.Tensor], feats: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of K2 (same arithmetic, any device).
+
+    Args:
+      feats: (N, 33) [pixel-aligned feature (32), z].
+    Returns:
+      (N,) f32 occupancy in [0, 1].
+    """
+    bf = torch.bfloat16
+    w = packed
+    x = feats.float().to(bf)
+    h = _leaky(_dot(w[0], x, w[1])).to(bf)
+    h = _leaky(_dot(w[2], torch.cat([h, x], dim=-1), w[3])).to(bf)
+    h = _leaky(_dot(w[4], torch.cat([h, x], dim=-1), w[5])).to(bf)
+    return torch.sigmoid(_dot(w[6], h, w[7]))[:, 0]
 
 
 def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
@@ -150,18 +198,24 @@ def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
                              f"{b.device}")
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+def _kernel_fns(name: str, prefix: str, launch_argtypes):
+    """(launch, error_string) C functions of the built library
+    ``csrc/<name>.cu``, with their signatures declared."""
     from avatarcap_tpu_torch import kernels
-    lib = kernels.load("warp_template_query")
-    lib.wtq_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.wtq_launch.restype = ctypes.c_int
-    lib.wtq_error_string.argtypes = [ctypes.c_int]
-    lib.wtq_error_string.restype = ctypes.c_char_p
-    return lib
+    lib = kernels.load(name)
+    launch = getattr(lib, f"{prefix}_launch")
+    launch.argtypes = launch_argtypes
+    launch.restype = ctypes.c_int
+    err_str = getattr(lib, f"{prefix}_error_string")
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    return launch, err_str
+
+
+def _raise_on(err: int, err_str, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + err_str(err).decode())
 
 
 def _launch(packed_offset, packed_template, pts, pose_feat):
@@ -185,17 +239,18 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
     out = {"occ": occ, "alpha": alpha, "rgb": rgb, "offset": off}
     if n == 0:
         return out
-    lib = _kernel_lib()
+    launch, err_str = _kernel_fns(
+        "warp_template_query", "wtq",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     ptrs = (ctypes.c_void_p * 40)(
         *[t.data_ptr() for t in tuple(packed_offset) + tuple(packed_template)])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wtq_launch(pts.data_ptr(), pf.data_ptr(), n, ptrs,
-                             occ.data_ptr(), alpha.data_ptr(), rgb.data_ptr(),
-                             off.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("warp_template_query kernel launch failed: "
-                           + lib.wtq_error_string(err).decode())
+        err = launch(pts.data_ptr(), pf.data_ptr(), n, ptrs, occ.data_ptr(),
+                     alpha.data_ptr(), rgb.data_ptr(), off.data_ptr(), stream)
+    _raise_on(err, err_str, "warp_template_query")
     warp_template_query.launches += 1
     return out
 
@@ -224,3 +279,52 @@ def warp_template_query(packed_offset: Sequence[torch.Tensor],
 
 
 warp_template_query.launches = 0
+
+
+def _recon_launch(packed, feats):
+    dev = feats.device
+    if feats.dim() != 2 or feats.shape[1] != RECON_IN_DIM:
+        raise ValueError(f"feats must be (N, {RECON_IN_DIM}), got "
+                         f"{tuple(feats.shape)}")
+    n = feats.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError("too many points for one launch")
+    _check_weights(packed, RECON_SHAPES, dev)
+    feats = feats.to(torch.float32).contiguous()
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    launch, err_str = _kernel_fns(
+        "recon_decode", "recon_decode",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_void_p])
+    ptrs = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in packed])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(feats.data_ptr(), n, ptrs, out.data_ptr(), stream)
+    _raise_on(err, err_str, "recon_decode")
+    recon_decode.launches += 1
+    return out
+
+
+def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
+                 ) -> torch.Tensor:
+    """ReconNet pixel-aligned occupancy decode (inference).
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``recon_decode.launches``); CPU tensors run the plain version.
+
+    Args:
+      packed: pack_recon_weights output on the feats' device.
+      feats: (N, 33) [pixel-aligned feature (32), z].
+    Returns:
+      (N,) f32 occupancy in [0, 1].
+    """
+    if feats.device.type == "cuda":
+        return _recon_launch(packed, feats)
+    if feats.device.type == "cpu":
+        return recon_decode_plain(packed, feats)
+    raise ValueError(f"unsupported device {feats.device}")
+
+
+recon_decode.launches = 0

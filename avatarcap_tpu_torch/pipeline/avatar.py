@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+from avatarcap_tpu_torch.models.layers import f32_convolutions
 from avatarcap_tpu_torch.ops.fused_query import (pack_offset_weights,
                                                  pack_template_weights)
 from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
@@ -43,7 +44,7 @@ def compute_pose_features(model: GeoTexAvatar, smpl_pos_map: torch.Tensor
                           ) -> torch.Tensor:
     """U-Net over the SMPL position map, once per pose: (B, H, W, 6) ->
     (B, H, W, 64) NHWC. Convolutions run in full f32 (no TF32)."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with f32_convolutions():
         return model.pose_features(smpl_pos_map)
 
 

@@ -1,25 +1,29 @@
-"""Avatar-only capture frame (counterpart of
-avatarcap_tpu/pipeline/capture.py, the ``w_recon=False, w_nerf=False``
-frame).
+"""Capture frame (counterpart of avatarcap_tpu/pipeline/capture.py), in
+the order of its ``frame_body``.
 
 Per frame: U-Net pose features -> coarse-to-fine canonical occupancy
-through the fused query kernel (or the f32 module path) -> marching cubes
-with trilinear-gradient normals -> canonical front/back index passes and
-their normal and Phong layers -> volume-LBS skinning to live space. The
-stage functions mirror the JAX stage bodies and keep their static
+through kernel K1 (or the f32 module path) -> marching cubes with
+trilinear-gradient normals -> volume-LBS skinning to live space. With
+``w_recon`` (the production frame): the image normals are lifted onto the
+mesh from the capture camera, the canonical front/back index passes
+interpolate them with the avatar normals and the Phong preview from one
+18-channel table, the front normals are merged by the two-phase
+optimisation, ReconNet (HGFilter features + coarse-to-fine pixel-aligned
+occupancy through kernel K2, or the f32 decoder) gives a second mesh, and
+that mesh is skinned too. The stage functions keep the JAX stages' static
 capacities, ascending compaction order and the aggregate ``overflow``
 bit, so meshes compare slot for slot with the JAX frame.
 
-Not in this slice (they raise ``NotImplementedError``): ``w_recon=True``
-(normal fusion and ReconNet, with kernel K2) and ``w_nerf=True`` (NeRF
-vertex colors, kernel K3), and the ``mc_edge``/``sobel_sample`` normal
+Not ported yet (they raise ``NotImplementedError``): ``w_nerf=True`` (NeRF
+vertex colors, kernel K3) and the ``mc_edge``/``sobel_sample`` normal
 modes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,15 +33,21 @@ from avatarcap_tpu_torch.body.skinning import (
     blend_joint_mats16, build_skin_weight_volume, mats16_apply_points,
     mats16_rotate, skin_points_by_volume)
 from avatarcap_tpu_torch.device import resolve_device
+from avatarcap_tpu_torch.fusion.normal_fusion import (
+    lift_image_normals, merge_normal_images, merge_normal_images_cover)
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+from avatarcap_tpu_torch.models.recon import ReconNetwork
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
-from avatarcap_tpu_torch.ops.fused_query import warp_template_query
+from avatarcap_tpu_torch.ops.fused_query import (pack_recon_weights,
+                                                 recon_decode,
+                                                 warp_template_query)
 from avatarcap_tpu_torch.ops.knn import approx_lbs_weights
 from avatarcap_tpu_torch.ops.marching_cubes import marching_tets
 from avatarcap_tpu_torch.pipeline.avatar import (
     AvatarStatics, FrameInputs, compute_pose_features, grid_pose_features,
     pack_fused_query_weights, query_occupancy)
-from avatarcap_tpu_torch.render.camera import cano_front_back_mvp
+from avatarcap_tpu_torch.render.camera import (
+    cano_front_back_mvp, gl_perspective_projection_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
 from avatarcap_tpu_torch.render.visualize import cano_index_passes, phong_shade
 
@@ -78,8 +88,8 @@ class CaptureMesh(NamedTuple):
 class CaptureOptions:
     """The JAX package's CaptureOptions, field for field (see
     avatarcap_tpu/pipeline/capture.py for each field's rationale). Fields
-    of paths outside this slice (recon, fusion, NeRF colors) are kept so
-    configurations carry over; their paths raise."""
+    of the NeRF color path, which is not ported yet, are kept so
+    configurations carry over; that path raises."""
 
     iso_value: float = 0.0
     max_tris: int = 1 << 20
@@ -103,7 +113,7 @@ class CaptureOptions:
     near_flag_anchors: int = 4
     recon_unique_capacity: int = 0
     recon_color_mode: str = "nn"
-    use_fused_query: bool = True     # K1 for the grid query
+    use_fused_query: bool = True     # K1 and K2 for the grid queries
     skinning_mode: str = "volume"
     skin_voxel: float = 0.01
     skin_row_group: int = 1
@@ -242,6 +252,11 @@ def hierarchical_volume(value_fn, grid: CaptureGrid, cano_bounds, c_prior,
     return vol, q_overflow
 
 
+def _stage(timer, name: str):
+    """``timer(name)``, a context manager around one stage, or nothing."""
+    return timer(name) if timer is not None else contextlib.nullcontext()
+
+
 def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
                   max_active):
     """Volume -> mesh with trilinear-gradient normals."""
@@ -262,13 +277,14 @@ class AvatarCapture:
     Args:
       avatar: the port's GeoTexAvatar (weights loaded; put in eval mode).
       statics: AvatarStatics; grid: CaptureGrid (tensors or arrays).
+      recon: the port's ReconNetwork, needed by ``w_recon=True`` frames.
       device: None = the card (raises without one); "cpu" runs the plain
-        PyTorch path everywhere, with K1's plain version.
+        PyTorch path everywhere, with the kernels' plain versions.
     """
 
     def __init__(self, avatar: GeoTexAvatar, statics: AvatarStatics,
-                 grid: CaptureGrid, options: CaptureOptions = CaptureOptions(),
-                 device=None):
+                 grid: CaptureGrid, recon: Optional[ReconNetwork] = None,
+                 options: CaptureOptions = CaptureOptions(), device=None):
         o = options
         if o.normal_mode != "trilinear":
             raise NotImplementedError(
@@ -277,6 +293,8 @@ class AvatarCapture:
         self.device = resolve_device(device)
         self.opt = o
         self.avatar = avatar.to(self.device).eval()
+        self.recon = (recon.to(self.device).eval() if recon is not None
+                      else None)
         self.statics = statics.to(self.device)
         grid = grid.to(self.device)
         if o.hierarchical_query and grid.c_idx is None:
@@ -292,6 +310,9 @@ class AvatarCapture:
         with torch.inference_mode():
             self.packed_query = (pack_fused_query_weights(self.avatar)
                                  if o.use_fused_query else None)
+            self.packed_recon = (
+                pack_recon_weights(self.recon.image_decoder)
+                if o.use_fused_query and self.recon is not None else None)
             if o.skinning_mode == "volume":
                 self.skin_wvol = build_skin_weight_volume(
                     self.statics.cano_smpl_vertices,
@@ -364,13 +385,16 @@ class AvatarCapture:
             mesh = mesh._replace(overflow=mesh.overflow | q_ovf)
         return mesh, feat
 
-    def cano_layers_stage(self, mesh: CaptureMesh):
+    def cano_layers_stage(self, mesh: CaptureMesh,
+                          extra_tri_attrs: Optional[torch.Tensor] = None):
         """One front + one back index pass over the canonical mesh, then
-        the avatar normals and the Phong preview of both sides from one
-        15-channel attribute table. The back images are x-flipped.
+        the avatar normals, the Phong preview of both sides and any extra
+        per-triangle layer (the lifted image normals) from one 15- or
+        18-channel attribute table. The back images are x-flipped.
 
         Returns (front RasterIndex, back RasterIndex, front normals,
-        back normals, (front phong, back phong))."""
+        back normals, (front phong, back phong)), and with
+        ``extra_tri_attrs`` (T, 3, 3) also its front and back images."""
         o = self.opt
         tris = mesh.vertices.reshape(-1, 3, 3)
         attr = mesh.normals.reshape(-1, 3, 3)
@@ -387,7 +411,10 @@ class AvatarCapture:
 
         fv, fn = cam_attrs(self._fmv)
         bv, bn = cam_attrs(self._bmv)
-        wide = torch.cat([attr, fv, fn, bv, bn], dim=-1)
+        layers = [attr, fv, fn, bv, bn]
+        if extra_tri_attrs is not None:
+            layers.append(extra_tri_attrs)
+        wide = torch.cat(layers, dim=-1)
         cc = o.raster_max_candidates
         f_out, f_iovf = interpolate(fri, wide, covered_capacity=cc)
         b_out, b_iovf = interpolate(bri, wide, covered_capacity=cc)
@@ -401,7 +428,10 @@ class AvatarCapture:
                               phong_shade(b_out[..., 9:12], b_out[..., 12:15]),
                               torch.ones_like(b_out[..., 9:12]))
         fri = fri._replace(overflow=fri.overflow | f_iovf | b_iovf)
-        return fri, bri, front_n, back_n, (phong_f, phong_b)
+        base = (fri, bri, front_n, back_n, (phong_f, phong_b))
+        if extra_tri_attrs is not None:
+            return base + (f_out[..., 15:18], b_out[..., 15:18])
+        return base
 
     def skinning_stage(self, mesh: CaptureMesh, cano2live: torch.Tensor):
         """Canonical mesh -> live space. Returns (live CaptureMesh, flat
@@ -421,39 +451,186 @@ class AvatarCapture:
         return CaptureMesh(live_v, live_n, mesh.num_tris, mesh.valid,
                            mesh.overflow), pt_mats
 
+    def lift_normals_stage(self, live_mesh: CaptureMesh, valid: torch.Tensor,
+                           pt_mats: torch.Tensor,
+                           inferred_normal: torch.Tensor, w2c: torch.Tensor,
+                           camera: Dict[str, float]):
+        """Image normals lifted onto the canonical soup from the capture
+        camera (intrinsics ``camera`` fx, fy, cx, cy; world -> camera
+        ``w2c``). Returns ((T, 3, 3) canonical normals, () overflow)."""
+        o = self.opt
+        img_h, img_w = inferred_normal.shape[:2]
+        fx, fy, cx, cy = (camera[k] for k in ("fx", "fy", "cx", "cy"))
+        proj = torch.as_tensor(gl_perspective_projection_matrix(
+            fx, fy, cx, cy, img_w, img_h, gl_space=False), device=self.device)
+        return lift_image_normals(
+            live_mesh.vertices.reshape(-1, 3, 3), valid, inferred_normal,
+            pt_mats, w2c, proj, fx, fy, cx, cy, img_h, img_w,
+            window=o.cano_window, big_tris=o.live_big_tris,
+            max_candidates=o.raster_max_candidates)
+
+    def recon_volume(self, feat_map: torch.Tensor, decode=recon_decode):
+        """ReconNet occupancy over the grid from the HGFilter feature map
+        (1, Hf, Wf, C). The occupancy iso level is 0.5, so the [-1, 1]
+        prior is rescaled to [0, 1].
+
+        Args:
+          decode: the fused path's (packed, feats (N, 33)) -> (N,) decoder,
+            K2's wrapper (a caller may wrap it to see each launch's
+            inputs).
+        Returns (vol_flat (X*Y*Z,), query overflow () or None).
+        """
+        o = self.opt
+        g = self.grid
+        st = self.statics
+        Z = g.vol_res[2]
+        prior01 = 0.5 * (g.prior_volume + 1.0)
+        c_prior01 = (0.5 * (g.c_prior + 1.0) if o.hierarchical_query
+                     else None)
+        capacity = o.recon_refine_capacity or o.refine_capacity
+        center = st.cano_smpl_center
+        if o.use_fused_query:
+            pk = self.packed_recon
+            if not o.hierarchical_query:
+                pf = grid_pose_features(feat_map, st, g.vol_res, g.valid_idx)
+                z = g.valid_pts[:, 2:3] - center[2]
+                return _scatter_set(prior01, g.valid_idx,
+                                    decode(pk, torch.cat([pf, z], -1))), None
+            pf_cols = grid_pose_features(feat_map, st, g.vol_res,
+                                         columns=True)
+
+            def vf(pts, fidx):
+                z = pts[:, 2:3] - center[2]
+                return decode(pk, torch.cat([pf_cols[fidx.long() // Z], z],
+                                            -1))
+        else:
+            def vf(pts, fidx):
+                return self.recon.decode_points(feat_map, pts[None],
+                                                center[None])[0]
+
+            if not o.hierarchical_query:
+                return _scatter_set(prior01, g.valid_idx,
+                                    vf(g.valid_pts, None)), None
+        return hierarchical_volume(vf, g, st.cano_bounds, c_prior01, prior01,
+                                   0.5, o.hier_alpha, capacity)
+
+    def recon_stage(self, front_normal: torch.Tensor,
+                    back_normal: torch.Tensor, timer=None) -> CaptureMesh:
+        """Fused front|back normals -> HGFilter features -> occupancy
+        volume -> mesh. ``timer`` (see process_frame) sees "hgfilter" and
+        "recon_query_mc"."""
+        o = self.opt
+        with _stage(timer, "hgfilter"):
+            feat_map = self.recon.get_feat_maps(
+                torch.cat([front_normal, back_normal], dim=-1)[None])
+        with _stage(timer, "recon_query_mc"):
+            vol, q_ovf = self.recon_volume(feat_map)
+            mesh = _extract_mesh(vol, self.grid, self.statics.cano_bounds,
+                                 0.5, o.recon_max_tris or o.max_tris,
+                                 o.recon_max_active or o.max_active)
+            if q_ovf is not None:
+                mesh = mesh._replace(overflow=mesh.overflow | q_ovf)
+        return mesh
+
+    def _neck_xy(self, neck_vertex_idx: int):
+        """(x, y) of the neck vertex on the canonical front image (host
+        integers, numpy float32 arithmetic as in the JAX package)."""
+        neck_v = (self.statics.cano_smpl_vertices[neck_vertex_idx]
+                  .detach().cpu().numpy()
+                  - self.statics.cano_smpl_center.detach().cpu().numpy())
+        res = self.opt.render_res
+        neck_y = int((1.0 - neck_v[1]) / 2.0 * res)
+        neck_x = int((neck_v[0] - 1.0) / 2.0 * res) % res
+        return neck_x, neck_y
+
     def process_frame(self, item: Dict[str, Any], w_recon: bool = True,
-                      w_nerf: bool = False) -> Dict[str, Any]:
+                      w_nerf: bool = False,
+                      inferred_normal: Optional[np.ndarray] = None,
+                      neck_vertex_idx: Optional[int] = None,
+                      camera: Optional[Dict[str, float]] = None,
+                      timer=None) -> Dict[str, Any]:
         """Run the capture stages for one dataset item.
 
-        This slice runs the avatar-only frame: ``w_recon=False,
-        w_nerf=False``. Returns dict(cano_mesh, live_mesh, cano_phong,
-        front_avatar_normal, back_avatar_normal, overflow).
+        Args:
+          item: live_smpl_v, cano2live_jnt_mats, smpl_pos_map and, for
+            ``w_recon``, w2c_RT (world -> camera).
+          w_recon: fuse the image normals and reconstruct with ReconNet
+            (needs ``recon`` at construction, ``inferred_normal`` (H, W,
+            3), ``neck_vertex_idx`` and ``camera`` dict(fx, fy, cx, cy)).
+          timer: optional callable, ``timer(stage_name)`` -> a context
+            manager wrapped around each stage (for per-stage timing).
+        Returns dict(cano_mesh, live_mesh, cano_phong, front_avatar_normal,
+        back_avatar_normal, overflow) and, with ``w_recon``,
+        front_merged_normal, front_image_normal, recon_mesh and
+        live_recon_mesh.
         """
-        if w_recon:
-            raise NotImplementedError(
-                "process_frame(w_recon=True) needs normal fusion, ReconNet "
-                "and kernel K2 (recon_decode_fused), which come with the "
-                "next slice of the port")
         if w_nerf:
             raise NotImplementedError(
                 "process_frame(w_nerf=True) needs the NeRF color path and "
                 "kernel K3 (ray_color_query_fused), which come with a later "
                 "slice of the port")
+        if w_recon and (self.recon is None or inferred_normal is None
+                        or neck_vertex_idx is None or camera is None):
+            raise ValueError(
+                "process_frame(w_recon=True) needs a ReconNetwork (recon=) "
+                "and the inferred_normal, neck_vertex_idx and camera "
+                "arguments")
+        o = self.opt
 
-        def tensor(key):
-            return torch.as_tensor(item[key], dtype=torch.float32).to(
-                self.device)[None]
+        def tensor(value):
+            return torch.as_tensor(value, dtype=torch.float32).to(
+                self.device)
 
         with torch.inference_mode():
-            frame = FrameInputs(live_smpl_v=tensor("live_smpl_v"),
-                                cano2live_jnt_mats=tensor("cano2live_jnt_mats"),
-                                smpl_pos_map=tensor("smpl_pos_map"))
-            cano_mesh, _ = self.avatar_geometry_stage(frame)
-            fri, bri, front_n, back_n, phong = self.cano_layers_stage(
-                cano_mesh)
-            live_mesh, _ = self.skinning_stage(cano_mesh,
-                                               frame.cano2live_jnt_mats[0])
+            frame = FrameInputs(
+                live_smpl_v=tensor(item["live_smpl_v"])[None],
+                cano2live_jnt_mats=tensor(item["cano2live_jnt_mats"])[None],
+                smpl_pos_map=tensor(item["smpl_pos_map"])[None])
+            jnt_mats = frame.cano2live_jnt_mats[0]
+            with _stage(timer, "geometry"):
+                cano_mesh, _ = self.avatar_geometry_stage(frame)
+            with _stage(timer, "skinning"):
+                live_mesh, pt_mats = self.skinning_stage(cano_mesh, jnt_mats)
+            if w_recon:
+                # lift the image normals before the canonical layers, so
+                # their interpolation joins the shared attribute table
+                with _stage(timer, "lift"):
+                    proj_n_tris, lift_ovf = self.lift_normals_stage(
+                        live_mesh, cano_mesh.valid, pt_mats,
+                        tensor(inferred_normal), tensor(item["w2c_RT"]),
+                        camera)
+                with _stage(timer, "cano_layers"):
+                    (fri, bri, front_avatar_n, back_avatar_n, phong,
+                     front_img_n, _) = self.cano_layers_stage(
+                        cano_mesh, extra_tri_attrs=proj_n_tris)
+            else:
+                with _stage(timer, "cano_layers"):
+                    (fri, bri, front_avatar_n, back_avatar_n,
+                     phong) = self.cano_layers_stage(cano_mesh)
             overflow = cano_mesh.overflow | fri.overflow | bri.overflow
-        return {"cano_mesh": cano_mesh, "live_mesh": live_mesh,
-                "cano_phong": phong, "front_avatar_normal": front_n,
-                "back_avatar_normal": back_n, "overflow": overflow}
+            results = {"cano_mesh": cano_mesh, "live_mesh": live_mesh,
+                       "cano_phong": phong,
+                       "front_avatar_normal": front_avatar_n,
+                       "back_avatar_normal": back_avatar_n}
+            if w_recon:
+                with _stage(timer, "merge"):
+                    if o.integrate_manner == "merge":
+                        front_merged = merge_normal_images(
+                            front_avatar_n, front_img_n,
+                            self._neck_xy(neck_vertex_idx),
+                            iter_num=o.fusion_iters)
+                    else:
+                        front_merged = merge_normal_images_cover(
+                            front_avatar_n, front_img_n)
+                # the back keeps the avatar normals (as the reference)
+                recon_mesh = self.recon_stage(front_merged, back_avatar_n,
+                                              timer=timer)
+                with _stage(timer, "recon_skinning"):
+                    live_recon, _ = self.skinning_stage(recon_mesh, jnt_mats)
+                overflow = overflow | lift_ovf | recon_mesh.overflow
+                results.update({"front_merged_normal": front_merged,
+                                "front_image_normal": front_img_n,
+                                "recon_mesh": recon_mesh,
+                                "live_recon_mesh": live_recon})
+            results["overflow"] = overflow
+        return results

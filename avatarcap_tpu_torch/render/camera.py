@@ -1,5 +1,6 @@
-"""Canonical orthographic cameras (numpy, host-side set-up; a copy of the
-parts of avatarcap_tpu/render/camera.py the canonical layers use).
+"""Camera matrices (numpy, host-side set-up; a copy of the parts of
+avatarcap_tpu/render/camera.py the capture frame uses): the canonical
+orthographic pair and the perspective projection of the live pass.
 
 GL conventions: row-major (4, 4) matrices; the back view is the front
 view rotated pi about y around the mesh center.
@@ -44,3 +45,23 @@ def cano_front_back_mvp(mesh_center: np.ndarray):
     trans_z[2, 3] = -10
     back_mv = trans_z @ _rot_y(math.pi) @ trans_cen
     return proj @ front_mv, front_mv, proj @ back_mv, back_mv
+
+
+def gl_perspective_projection_matrix(fx, fy, cx, cy, img_w, img_h,
+                                     far=100.0, near=0.1, gl_space=False):
+    """Perspective projection of a pinhole camera; by default the model is
+    in real camera space (+z forward, y down)."""
+    proj = np.zeros((4, 4), np.float32)
+    proj[0, 0] = 2 * fx / img_w
+    proj[0, 2] = (2 * cx - img_w) / img_w
+    proj[1, 1] = -2 * fy / img_h
+    proj[1, 2] = (img_h - 2 * cy) / img_h
+    proj[2, 2] = (far + near) / (far - near)
+    proj[2, 3] = 2 * near * far / (near - far)
+    proj[3, 2] = 1.0
+    if gl_space:
+        real2gl = np.identity(4, np.float32)
+        real2gl[1, 1] = -1
+        real2gl[2, 2] = -1
+        proj = proj @ real2gl
+    return proj

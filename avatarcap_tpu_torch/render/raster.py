@@ -1,6 +1,6 @@
-"""Static-capacity software rasterizer, canonical mirror-pair pass
-(counterpart of avatarcap_tpu/render/raster.py: ``rasterize_index_pair``,
-``_big_triangle_pass`` and ``interpolate``).
+"""Static-capacity software rasterizer (counterpart of
+avatarcap_tpu/render/raster.py: ``rasterize_index``, ``rasterize``,
+``rasterize_index_pair``, ``_big_triangle_pass`` and ``interpolate``).
 
 Same algorithm and conventions as the JAX module, so outputs compare
 pixel for pixel: a static K x K candidate window anchored at the ceil of
@@ -23,6 +23,13 @@ import torch
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
 
 _INT_MAX = torch.iinfo(torch.int32).max
+
+
+class RasterOutput(NamedTuple):
+    attrs: torch.Tensor     # (H, W, A) interpolated attributes (bg 0)
+    depth: torch.Tensor     # (H, W) NDC depth, +inf where empty
+    mask: torch.Tensor      # (H, W) bool coverage
+    overflow: torch.Tensor  # () bool: candidates or big tris were dropped
 
 
 class RasterIndex(NamedTuple):
@@ -138,58 +145,44 @@ def _big_triangle_pass(px, py, pz, iw, area2, is_big, capacity, height,
             mask, n_big > capacity)
 
 
-def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
-                         valid_tris: torch.Tensor, height: int, width: int,
-                         window: int = 4, max_candidates: int = 0,
-                         big_tri_capacity: int = 0):
-    """Front + back index passes of a mirror-pair camera in one candidate
-    sweep (the canonical ortho front/back views).
-
-    Precondition (camera.cano_front_back_mvp): back NDC = (-x_f, y_f, z_b)
-    with the same ortho projection, so the back pixel grid is the
-    x-mirror of the front's and back-face culling routes every
-    non-degenerate triangle to exactly one view. Back-routed candidates
-    scatter at the mirrored column of a second buffer; outputs keep the
-    convention of two separate passes (back buffer in back-view pixel
-    coordinates, not pre-flipped).
-
-    Args:
-      clip_front, clip_back: (T, 3, 4) clip-space vertices (w == 1).
-      valid_tris: (T,) bool.
-    Returns:
-      (front RasterIndex, back RasterIndex), both with the shared overflow.
-    """
-    dev = clip_front.device
-    T = clip_front.shape[0]
-    K = window
+def _screen_setup(clip: torch.Tensor, valid_tris: torch.Tensor,
+                  height: int, width: int):
+    """Per-triangle set-up shared by the single and the pair pass: pad to
+    a power-of-two triangle count Tp (a candidate id is slot * Tp + tri,
+    so its triangle is an AND), divide by w, map to pixel space and take
+    the signed pixel-space area (counter-clockwise in GL window space is
+    negative here). Returns (Tp, w_safe, px, py, pz, area2, w_ok)."""
+    T = clip.shape[0]
     Tp = 1 << max(T - 1, 1).bit_length()
     if Tp != T:
-        pad = Tp - T
-        clip_front = torch.cat([clip_front,
-                                clip_front.new_zeros((pad, 3, 4))])
-        clip_back = torch.cat([clip_back, clip_back.new_zeros((pad, 3, 4))])
+        clip = torch.cat([clip, clip.new_zeros((Tp - T, 3, 4))])
         valid_tris = torch.cat([valid_tris,
-                                valid_tris.new_zeros((pad,))])
-
-    w = clip_front[..., 3]
+                                valid_tris.new_zeros((Tp - T,))])
+    w = clip[..., 3]
     w_ok = (w > 1e-8).all(-1) & valid_tris
     w_safe = torch.where(w.abs() < 1e-8, torch.ones_like(w), w)
-    ndc = clip_front[..., :3] / w_safe[..., None]
-    pz_b = clip_back[..., 2] / w_safe
-
+    ndc = clip[..., :3] / w_safe[..., None]
     px = (ndc[..., 0] + 1.0) * (0.5 * width) - 0.5           # (Tp, 3)
     py = (1.0 - ndc[..., 1]) * (0.5 * height) - 0.5
     pz = ndc[..., 2]
-
     ax, ay = px[:, 0], py[:, 0]
     bx, by = px[:, 1], py[:, 1]
     cx, cy = px[:, 2], py[:, 2]
     area2 = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
-    side = area2 > 0.0                  # CW in the front view -> back
-    tri_ok = w_ok & (area2.abs() > 1e-12)
-    iw = 1.0 / w_safe
-    pz_sel = torch.where(side[:, None], pz_b, pz)
+    return Tp, w_safe, px, py, pz, area2, w_ok
 
+
+def _candidates(px, py, pz_sel, area2, tri_ok, K: int, big_tri_capacity: int,
+                height: int, width: int):
+    """Dense (K*K, Tp) candidate window anchored at the ceil of each
+    triangle's bbox min: edge-function coverage with the -1e-6 slack and
+    depth interpolated from the per-vertex ``pz_sel``. Triangles larger
+    than the window are ``is_big`` (and leave this pass when the big pass
+    is on). Returns (is_big, cx_d, cy_d, w0_d, w1_d, z_d, ok_d)."""
+    dev = px.device
+    ax, ay = px[:, 0], py[:, 0]
+    bx, by = px[:, 1], py[:, 1]
+    cx, cy = px[:, 2], py[:, 2]
     min_x = torch.ceil(px.min(-1).values).long()
     min_y = torch.ceil(py.min(-1).values).long()
     too_big = ((px.max(-1).values > min_x.to(px.dtype) + (K - 1))
@@ -214,34 +207,158 @@ def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
            + w2_d * pz_sel[None, :, 2])
     ok_d = ((w0_d >= eps) & (w1_d >= eps) & (w2_d >= eps) & in_img
             & (z_d >= -1.0) & (z_d <= 1.0) & tri_main[None, :])
+    return is_big, cx_d, cy_d, w0_d, w1_d, z_d, ok_d
 
-    npix = height * width
-    col_sel = torch.where(side[None, :], (width - 1) - cx_d, cx_d)
-    pix_d = (torch.where(side[None, :], npix, 0) + cy_d * width
-             + col_sel).reshape(-1)
-    valid = ok_d.reshape(-1)
-    z_flat = z_d.reshape(-1)
-    w0_flat = w0_d.reshape(-1)
-    w1_flat = w1_d.reshape(-1)
 
-    max_c = max_candidates if max_candidates > 0 else max(2 * T, 1 << 17)
+def _resolve(pix: torch.Tensor, valid: torch.Tensor, z: torch.Tensor,
+             n_slots: int, max_c: int):
+    """Compact the covered candidates to ``max_c`` and z-resolve them into
+    ``n_slots`` pixels: scatter-min of depth, then scatter-min of the
+    candidate id among the depth winners. Returns (winner ids (n_slots
+    + 1,), INT_MAX where empty; depth buffer; overflow; covered count)."""
+    dev = pix.device
     cand_of, n_covered, c_live = compact_mask_indices(valid, max_c)
     cand_of = cand_of.long()
-    overflow = n_covered > max_c
-    pix_c = torch.where(c_live, pix_d[cand_of],
-                        torch.full_like(cand_of, 2 * npix))
+    pix_c = torch.where(c_live, pix[cand_of],
+                        torch.full_like(cand_of, n_slots))
     inf = float("inf")
-    z_c = torch.where(c_live, z_flat[cand_of],
-                      torch.full_like(z_flat[cand_of], inf))
-
-    zbuf = torch.full((2 * npix + 1,), inf, dtype=z_c.dtype, device=dev)
+    z_c = torch.where(c_live, z[cand_of], torch.full_like(z[cand_of], inf))
+    zbuf = torch.full((n_slots + 1,), inf, dtype=z_c.dtype, device=dev)
     zbuf = zbuf.scatter_reduce(0, pix_c, z_c, reduce="amin")
     is_winner = (z_c == zbuf[pix_c]) & (z_c < inf)
     win_ids = torch.where(is_winner, cand_of,
                           torch.full_like(cand_of, _INT_MAX))
-    winner = torch.full((2 * npix + 1,), _INT_MAX, dtype=torch.int64,
+    winner = torch.full((n_slots + 1,), _INT_MAX, dtype=torch.int64,
                         device=dev)
     winner = winner.scatter_reduce(0, pix_c, win_ids, reduce="amin")
+    return winner, zbuf, n_covered > max_c, n_covered
+
+
+def _merge_big(tri_of, bw, depth, mask, px, py, pz, iw, area2, is_big,
+               capacity, height, width):
+    """Run the exact big-triangle pass and merge it by depth (the windowed
+    pass wins exact ties). Returns (tri, bw, depth, mask, big overflow)."""
+    (big_tri, big_bw, big_depth, big_mask,
+     big_over) = _big_triangle_pass(px, py, pz, iw, area2, is_big, capacity,
+                                    height, width)
+    take_big = big_mask & (big_depth < depth)
+    return (torch.where(take_big, big_tri, tri_of),
+            torch.where(take_big[:, None], big_bw, bw),
+            torch.where(take_big, big_depth, depth), mask | big_mask,
+            big_over)
+
+
+def rasterize_index(clip_verts: torch.Tensor, valid_tris: torch.Tensor,
+                    height: int, width: int, window: int = 4,
+                    max_candidates: int = 0,
+                    big_tri_capacity: int = 0) -> RasterIndex:
+    """One index pass with perspective-correct weights and back faces
+    culled (the live position pass of normal fusion).
+
+    Args:
+      clip_verts: (T, 3, 4) clip-space vertices (x, y, z, w); vertices
+        with w <= 1e-8 drop their triangle.
+      valid_tris: (T,) bool.
+      max_candidates: covered-candidate capacity (default max(T, 65536)).
+      big_tri_capacity: exact-pass slots for triangles larger than the
+        window; 0 disables the big pass.
+    """
+    T = clip_verts.shape[0]
+    Tp, w_safe, px, py, pz, area2, w_ok = _screen_setup(
+        clip_verts, valid_tris, height, width)
+    tri_ok = w_ok & (area2 < -1e-12)      # counter-clockwise: front
+    iw = 1.0 / w_safe
+    is_big, cx_d, cy_d, w0_d, w1_d, z_d, ok_d = _candidates(
+        px, py, pz, area2, tri_ok, window, big_tri_capacity, height, width)
+
+    npix = height * width
+    max_c = max_candidates if max_candidates > 0 else max(T, 1 << 16)
+    winner, zbuf, overflow, n_covered = _resolve(
+        (cy_d * width + cx_d).reshape(-1), ok_d.reshape(-1),
+        z_d.reshape(-1), npix, max_c)
+    wv = winner[:npix]
+    mask = wv != _INT_MAX
+    safe_winner = torch.where(mask, wv, torch.zeros_like(wv))
+    tri_of = safe_winner & (Tp - 1)
+    bw = _perspective_weights(w0_d.reshape(-1)[safe_winner],
+                              w1_d.reshape(-1)[safe_winner], iw[tri_of])
+    if 0 < max_c < npix:
+        bw = torch.where(mask[:, None], bw, torch.zeros_like(bw))
+    depth = torch.where(mask, zbuf[:npix],
+                        torch.full_like(zbuf[:npix], float("inf")))
+    if big_tri_capacity > 0:
+        tri_of, bw, depth, mask, big_over = _merge_big(
+            tri_of, bw, depth, mask, px, py, pz, iw, area2, is_big,
+            big_tri_capacity, height, width)
+        overflow = overflow | big_over
+    else:
+        overflow = overflow | is_big.any()
+    return RasterIndex(tri=tri_of, bw=bw, depth=depth.reshape(height, width),
+                       mask=mask.reshape(height, width), overflow=overflow,
+                       n_candidates=n_covered,
+                       n_big=is_big.sum().to(torch.int32))
+
+
+def rasterize(clip_verts: torch.Tensor, attrs: torch.Tensor,
+              valid_tris: torch.Tensor, height: int, width: int,
+              window: int = 4, max_candidates: int = 0,
+              big_tri_capacity: int = 0) -> RasterOutput:
+    """Index pass + one interpolation of per-vertex attrs (T, 3, A),
+    background 0; the masked interpolation runs at the candidate capacity
+    and its overflow joins the pass's."""
+    ri = rasterize_index(clip_verts, valid_tris, height, width,
+                         window=window, max_candidates=max_candidates,
+                         big_tri_capacity=big_tri_capacity)
+    img, iovf = interpolate(ri, attrs, covered_capacity=max_candidates)
+    return RasterOutput(attrs=img, depth=ri.depth, mask=ri.mask,
+                        overflow=ri.overflow | iovf)
+
+
+def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
+                         valid_tris: torch.Tensor, height: int, width: int,
+                         window: int = 4, max_candidates: int = 0,
+                         big_tri_capacity: int = 0):
+    """Front + back index passes of a mirror-pair camera in one candidate
+    sweep (the canonical ortho front/back views).
+
+    Precondition (camera.cano_front_back_mvp): back NDC = (-x_f, y_f, z_b)
+    with the same ortho projection, so the back pixel grid is the
+    x-mirror of the front's and back-face culling routes every
+    non-degenerate triangle to exactly one view. Back-routed candidates
+    scatter at the mirrored column of a second buffer; outputs keep the
+    convention of two separate passes (back buffer in back-view pixel
+    coordinates, not pre-flipped).
+
+    Args:
+      clip_front, clip_back: (T, 3, 4) clip-space vertices (w == 1).
+      valid_tris: (T,) bool.
+    Returns:
+      (front RasterIndex, back RasterIndex), both with the shared overflow.
+    """
+    T = clip_front.shape[0]
+    Tp, w_safe, px, py, pz, area2, w_ok = _screen_setup(
+        clip_front, valid_tris, height, width)
+    if Tp != T:
+        clip_back = torch.cat([clip_back,
+                               clip_back.new_zeros((Tp - T, 3, 4))])
+    pz_b = clip_back[..., 2] / w_safe
+    side = area2 > 0.0                  # CW in the front view -> back
+    tri_ok = w_ok & (area2.abs() > 1e-12)
+    iw = 1.0 / w_safe
+    pz_sel = torch.where(side[:, None], pz_b, pz)
+    is_big, cx_d, cy_d, w0_d, w1_d, z_d, ok_d = _candidates(
+        px, py, pz_sel, area2, tri_ok, window, big_tri_capacity, height,
+        width)
+
+    npix = height * width
+    col_sel = torch.where(side[None, :], (width - 1) - cx_d, cx_d)
+    pix_d = torch.where(side[None, :], npix, 0) + cy_d * width + col_sel
+    max_c = max_candidates if max_candidates > 0 else max(2 * T, 1 << 17)
+    winner, zbuf, overflow, n_covered = _resolve(
+        pix_d.reshape(-1), ok_d.reshape(-1), z_d.reshape(-1), 2 * npix,
+        max_c)
+    w0_flat = w0_d.reshape(-1)
+    w1_flat = w1_d.reshape(-1)
 
     outs = []
     for s in range(2):
@@ -255,9 +372,9 @@ def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
         bw = torch.stack([w0_w, w1_w, 1.0 - w0_w - w1_w], dim=-1)
         if 0 < max_c < npix:
             bw = torch.where(mask[:, None], bw, torch.zeros_like(bw))
-        out_depth = torch.where(mask, zbuf[s * npix:(s + 1) * npix],
-                                torch.full_like(mask, inf, dtype=z_c.dtype))
-
+        depth = torch.where(mask, zbuf[s * npix:(s + 1) * npix],
+                            torch.full_like(mask, float("inf"),
+                                            dtype=zbuf.dtype))
         if big_tri_capacity > 0:
             if s == 0:
                 bpx, bpy, bpz = px, py, pz
@@ -266,20 +383,15 @@ def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
                 bpx = (width - 1.0) - px
                 bpy, bpz = py, pz_b
                 barea, bbig = -area2, is_big & side
-            (big_tri, big_bw, big_depth, big_mask,
-             big_over) = _big_triangle_pass(bpx, bpy, bpz, iw, barea, bbig,
-                                            big_tri_capacity, height, width)
+            tri_of, bw, depth, mask, big_over = _merge_big(
+                tri_of, bw, depth, mask, bpx, bpy, bpz, iw, barea, bbig,
+                big_tri_capacity, height, width)
             overflow = overflow | big_over
-            take_big = big_mask & (big_depth < out_depth)
-            tri_of = torch.where(take_big, big_tri, tri_of)
-            bw = torch.where(take_big[:, None], big_bw, bw)
-            out_depth = torch.where(take_big, big_depth, out_depth)
-            mask = mask | big_mask
         else:
             overflow = overflow | is_big.any()
 
         outs.append(RasterIndex(
-            tri=tri_of, bw=bw, depth=out_depth.reshape(height, width),
+            tri=tri_of, bw=bw, depth=depth.reshape(height, width),
             mask=mask.reshape(height, width), overflow=overflow,
             n_candidates=n_covered,
             n_big=(is_big & (side if s else ~side)).sum().to(torch.int32)))

@@ -1,10 +1,13 @@
 """Full-size capture subject on the toy body (counterpart of
-avatarcap_tpu/tools/bench_workloads.py:22-106: ``toy_avatar_statics`` and
-``build_capture_grid``).
+avatarcap_tpu/tools/bench_workloads.py:22-106 and :286-424:
+``toy_avatar_statics``, ``build_capture_grid``, the networks and the
+frame's camera inputs).
 
 The capture workload of the repo: a 384 x 384 x 128 canonical grid
 (~18.9 M nodes) over the toy body densified to 6,752 vertices (real SMPL
-has 6,890; KNN cost scales with the vertex count).
+has 6,890; KNN cost scales with the vertex count), GeoTexAvatar and
+ReconNet at their published widths with random weights, and the JAX
+bench's capture camera.
 """
 
 from __future__ import annotations
@@ -13,9 +16,12 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from avatarcap_tpu_torch.body.smpl import canonical_pose, smpl_forward
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+from avatarcap_tpu_torch.models.layers import WeightNormPointConv1d
+from avatarcap_tpu_torch.models.recon import ReconNetwork
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
 from avatarcap_tpu_torch.ops.knn import knn
 from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
@@ -76,6 +82,59 @@ def random_avatar(generator: torch.Generator) -> GeoTexAvatar:
         model.cano_template.geo_mlp.fc_list[1].weight.uniform_(
             -0.1, 0.1, generator=generator)
     return model.eval()
+
+
+def random_recon(generator: torch.Generator) -> ReconNetwork:
+    """ReconNetwork at its published widths (HGFilter stack 1, depth 4,
+    256 channels, GroupNorm(32); the weight-normed 33 -> 512 -> 256 ->
+    128 -> 1 decoder) with every weight drawn from ``generator``:
+    LeCun-uniform conv and weight-norm directions with gains equal to
+    their norms, GroupNorm scales U(0.8, 1.2), biases U(-0.1, 0.1). The
+    decoder head is U(+-0.3) with a zero bias, so the occupancy
+    crosses 0.5 inside the near-body band rather than sitting on one
+    side of it. Untrained all the same: its iso-surface is a random
+    field."""
+    def lecun_(w):
+        bound = (3.0 / w[0].numel()) ** 0.5
+        w.uniform_(-bound, bound, generator=generator)
+
+    model = ReconNetwork()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.GroupNorm):
+                m.weight.uniform_(0.8, 1.2, generator=generator)
+                m.bias.uniform_(-0.1, 0.1, generator=generator)
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d)):
+                lecun_(m.weight)
+                if m.bias is not None:
+                    m.bias.uniform_(-0.1, 0.1, generator=generator)
+            elif isinstance(m, WeightNormPointConv1d):
+                lecun_(m.weight_v)
+                m.weight_g.copy_(m.weight_v.norm(dim=(1, 2), keepdim=True))
+                m.bias.uniform_(-0.1, 0.1, generator=generator)
+        head = model.image_decoder.fc_list[3]
+        head.weight.uniform_(-0.3, 0.3, generator=generator)
+        head.bias.zero_()
+    return model.eval()
+
+
+def bench_camera(img_res: int = 512):
+    """The JAX bench's capture inputs (avatarcap_tpu/tools/
+    bench_workloads.py:403-421) for an img_res^2 image: the camera 2 m in
+    front of the body looking +z (w2c_RT = identity with [2, 3] = 2),
+    fx = fy = 550 and cx = cy = 256 at 512^2 (scaled with img_res), and an
+    inferred normal map that is (0, 0, -1) on its central half and zero
+    elsewhere. Returns (w2c_RT (4, 4), camera dict, normal map (H, W, 3)),
+    numpy float32."""
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[2, 3] = 2.0
+    s = img_res / 512.0
+    camera = {"fx": 550.0 * s, "fy": 550.0 * s, "cx": 256.0 * s,
+              "cy": 256.0 * s}
+    normal = np.zeros((img_res, img_res, 3), np.float32)
+    q = img_res // 4
+    normal[q:img_res - q, q:img_res - q] = [0.0, 0.0, -1.0]
+    return w2c, camera, normal
 
 
 def build_capture_grid(statics: AvatarStatics,

@@ -1,9 +1,10 @@
-"""Weight bridge: JAX/flax GeoTexAvatar variables -> the port's state_dict.
+"""Weight bridge: JAX/flax variables -> the port's state_dicts.
 
-``avatar_state_dict_from_jax`` is the inverse of
-avatarcap_tpu/tools/convert_torch_ckpt.py:convert_geotex_avatar. Its key
-names are the reference torch names that converter reads, so the port's
-``GeoTexAvatar`` also loads a released AvatarCap checkpoint (through
+``avatar_state_dict_from_jax`` and ``recon_state_dict_from_jax`` are the
+inverses of avatarcap_tpu/tools/convert_torch_ckpt.py:convert_geotex_avatar
+and :convert_recon_network. Their key names are the reference torch names
+those converters read, so the port's ``GeoTexAvatar`` and
+``ReconNetwork`` also load released AvatarCap checkpoints (through
 ``load_reference_state_dict``). Layouts:
 
 - flax Conv kernel (kh, kw, I, O)           -> torch Conv2d (O, I, kh, kw)
@@ -12,6 +13,7 @@ names are the reference torch names that converter reads, so the port's
 - Dense kernel (I, O)                       -> Conv1d (O, I, 1)
 - BatchNorm running stats from ``batch_stats``; affine scale/bias from
   ``params``
+- GroupNorm scale/bias                      -> weight/bias
 """
 
 from __future__ import annotations
@@ -96,6 +98,53 @@ def avatar_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             affine=wf["mlp"][f"bn{i}"])
     _dense(sd, "warping_field.out_layer_coord_affine",
            wf["out_layer_coord_affine"])
+    return sd
+
+
+def _groupnorm(sd, name, p):
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _hg_convblock(sd, name, p):
+    for i in (1, 2, 3):
+        _conv2d(sd, f"{name}.conv{i}", p[f"conv{i}"])
+        _groupnorm(sd, f"{name}.bn{i}", p[f"bn{i}"])
+    if "downsample_conv" in p:
+        _groupnorm(sd, f"{name}.downsample.0", p["bn4"])
+        _conv2d(sd, f"{name}.downsample.2", p["downsample_conv"])
+
+
+def recon_state_dict_from_jax(variables: Mapping,
+                              depth: int = 4) -> Dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of ReconNetwork -> the port's ReconNetwork
+    state_dict (the inverse of convert_torch_ckpt.py:convert_recon_network).
+    Weight-normed layers: ``g`` (O,) -> ``weight_g`` (O, 1, 1), ``v``
+    (I, O) -> ``weight_v`` (O, I, 1)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    enc = params["image_encoder"]
+    _conv2d(sd, "image_encoder.conv1", enc["conv1"])
+    _groupnorm(sd, "image_encoder.bn1", enc["bn1"])
+    for name in ("conv2", "conv3", "conv4"):
+        _hg_convblock(sd, f"image_encoder.{name}", enc[name])
+    hg = enc["m0"]
+    for lvl in range(depth, 0, -1):
+        for b in ("b1", "b2", "b3"):
+            _hg_convblock(sd, f"image_encoder.m0.{b}_{lvl}", hg[f"{b}_{lvl}"])
+    _hg_convblock(sd, "image_encoder.m0.b2_plus_1", hg["b2_plus_1"])
+    _hg_convblock(sd, "image_encoder.top_m_0", enc["top_m_0"])
+    _conv2d(sd, "image_encoder.conv_last0", enc["conv_last0"])
+    _groupnorm(sd, "image_encoder.bn_end0", enc["bn_end0"])
+    _conv2d(sd, "image_encoder.l0", enc["l0"])
+    dec = params["image_decoder"]
+    for i in range(3):
+        p = dec[f"fc{i}"]
+        name = f"image_decoder.fc_list.{i}.0"
+        sd[f"{name}.weight_g"] = _t(np.asarray(p["g"])[:, None, None])
+        sd[f"{name}.weight_v"] = _t(np.asarray(p["v"]).T[:, :, None])
+        sd[f"{name}.bias"] = _t(p["bias"])
+    _dense(sd, "image_decoder.fc_list.3", dec["fc3"])
     return sd
 
 

@@ -4,21 +4,30 @@
 Usage: python3 chip_smoke.py   (from the root of a checkout; one card)
 
 Phases, each fatal on failure:
-  1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-     and print the ptxas resource report;
+  1. build every CUDA kernel from csrc/ (one nvcc per source, all started
+     together) and print each ptxas resource report;
   2. build the full-size capture subject: the toy body (6,752 vertices),
-     a 384 x 384 x 128 canonical grid, GeoTexAvatar at its published
-     widths with weights from a fixed torch.Generator, the capture
-     options of the repo's capture workload;
+     a 384 x 384 x 128 canonical grid, GeoTexAvatar and ReconNet at their
+     published widths with weights from fixed torch.Generators, the
+     capture options and the camera of the repo's capture workload;
   3. hold kernel K1 (warp_template_query) against its plain PyTorch
      version on the inputs of the frame's coarse and refine launches, and
      time kernel, plain version and bound;
   4. one warm-up and one timed avatar-only capture frame,
      process_frame(item, w_recon=False, w_nerf=False), with the kernel
-     launch counts read just around the timed frame; outputs must be
-     finite with triangles;
-  5. the same frame on a small subject on the card and on the CPU, which
-     must agree.
+     launch counts set to 0 just before and read just after the timed
+     frame (2 K1 launches, no K2); outputs must be finite with triangles;
+     then the synchronised stage times;
+  5. the production frame, process_frame(item, w_recon=True,
+     w_nerf=False, ...): a warm-up frame, whose merged normals give the
+     inputs of the two K2 (recon_decode) launches, recorded through the
+     same recon_volume the frame runs; K2 held against its plain version
+     on them and timed; then two timed frames with the launch counts read
+     around each (2 K1 and 2 K2 launches), whose triangle counts are
+     compared (run-to-run drift), two more with
+     torch.backends.cudnn.deterministic = True, and the stage times;
+  6. the avatar-only and the production frame on a small subject on the
+     card and on the CPU (f32 path and kernels), which must agree.
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Writes the detailed
 record to chiprun_out/chip_smoke.json. Exits non-zero without a CUDA
@@ -27,6 +36,7 @@ device, without the package next to it, or on any failed phase.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -44,13 +54,22 @@ PEAK_BYTES_PER_S = 3.35e12
 # tolerance at which the JAX package holds its own kernel
 # (tests/test_pallas_query.py).
 K1_TOL = {"occ": 2e-2, "alpha": 2e-2, "rgb": 2e-2, "offset": 2e-3}
+# K2 against its plain version: the same reason and the same 2e-2 at which
+# the JAX package holds its kernel (tests/test_recon_fused.py); the flips
+# stay rare, so the median difference must stay below 1e-4
+K2_TOL = 2e-2
+K2_MEDIAN_TOL = 1e-4
 
 CAPTURE_OPTIONS = dict(
     max_tris=(1 << 19) + (1 << 16),            # 589,824
     max_active=(1 << 18) + (1 << 15),          # 294,912
     refine_capacity=(1 << 20) + (1 << 19) + (1 << 18) + (1 << 17),
+    recon_max_tris=(1 << 18) + (1 << 15),      # 294,912
+    recon_max_active=(1 << 17) + (1 << 14),    # 147,456
+    recon_refine_capacity=1 << 18,             # 262,144
     raster_max_candidates=1 << 16,
     skin_row_group=3, render_res=512, hierarchical_query=True,
+    fusion_iters=100, integrate_manner="merge",
     normal_mode="trilinear", use_fused_query=True)
 
 
@@ -58,6 +77,23 @@ def _sync(device):
     import torch
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class StageClock:
+    """``timer`` for process_frame: synchronised seconds of each stage."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        _sync(self.device)
+        t0 = time.perf_counter()
+        yield
+        _sync(self.device)
+        self.seconds[name] = (self.seconds.get(name, 0.0)
+                              + time.perf_counter() - t0)
 
 
 def _timed(fn, device, reps):
@@ -80,6 +116,25 @@ def _timed(fn, device, reps):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def measure_launch(kernel, plain, n, macs_per_point, bytes_per_point,
+                   weight_bytes, device):
+    """Milliseconds of one launch (kernel() over 10 calls, plain() over 3)
+    beside its bound: the larger of its bf16 operations over the peak
+    rate and its bytes (each input read once, each output written once,
+    the packed weights once) over the memory rate."""
+    import torch
+    with torch.inference_mode():
+        ms = _timed(kernel, device, reps=10)
+        plain_ms = _timed(plain, device, reps=3)
+    flops = 2.0 * macs_per_point * n
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (n * bytes_per_point + weight_bytes) / PEAK_BYTES_PER_S * 1e3
+    return {"points": n, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / (ms * 1e-3) / 1e12}
+
+
 def build_kernels():
     from avatarcap_tpu_torch import kernels
     t0 = time.perf_counter()
@@ -96,28 +151,34 @@ def build_kernels():
 
 
 def build_subject(device, vol_res=(384, 384, 128), dense=True, seed=0,
-                  options=None):
-    """(AvatarCapture, item, n_valid) for the capture workload."""
+                  options=None, img_res=512):
+    """(AvatarCapture, item, production-frame kwargs, n_valid) for the
+    capture workload."""
     import numpy as np
     import torch
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureOptions)
     from avatarcap_tpu_torch.tools.bench_workloads import (
-        build_capture_grid, random_avatar, toy_avatar_statics)
+        bench_camera, build_capture_grid, random_avatar, random_recon,
+        toy_avatar_statics)
     params, statics, v = toy_avatar_statics(dense=dense, device=device)
     grid, n_valid = build_capture_grid(statics, vol_res)
     gen = torch.Generator().manual_seed(seed)
     avatar = random_avatar(gen)
+    recon = random_recon(torch.Generator().manual_seed(seed + 1))
     opts = CaptureOptions(**(options or CAPTURE_OPTIONS))
-    capture = AvatarCapture(avatar, statics, grid, options=opts,
+    capture = AvatarCapture(avatar, statics, grid, recon=recon, options=opts,
                             device=device)
     pos_res = 256
     pos_map = torch.randn((pos_res, pos_res, 6), generator=gen) * 0.1
+    w2c, camera, inferred = bench_camera(img_res)
     item = {"live_smpl_v": v.astype(np.float32),
             "cano2live_jnt_mats": np.tile(np.eye(4, dtype=np.float32),
                                           (params.num_joints, 1, 1)),
-            "smpl_pos_map": pos_map.numpy()}
-    return capture, item, n_valid
+            "smpl_pos_map": pos_map.numpy(), "w2c_RT": w2c}
+    recon_kw = dict(inferred_normal=inferred, neck_vertex_idx=0,
+                    camera=camera)
+    return capture, item, recon_kw, n_valid
 
 
 def k1_launch_inputs(capture, item):
@@ -166,7 +227,7 @@ def check_k1(capture, recorded, device):
                                             pts, pf)
         _sync(device)
         for k in ref:
-            if not bool(torch.isfinite(got[k]).all()):
+            if not _finite([got[k]]):
                 raise AssertionError(f"K1 output {k} is not finite")
             e = float((got[k] - ref[k]).abs().max())
             errs[k] = max(errs.get(k, 0.0), e)
@@ -179,27 +240,14 @@ def check_k1(capture, recorded, device):
                        for t in pk["offset"] + pk["template"])
 
     def measure(pts, pf):
-        n = pts.shape[0]
-
-        def kernel():
-            with torch.inference_mode():
-                warp_template_query(pk["offset"], pk["template"], pts, pf)
-
-        def plain():
-            with torch.inference_mode():
-                warp_template_query_plain(pk["offset"], pk["template"], pts,
-                                          pf)
-
-        ms = _timed(kernel, device, reps=10)
-        plain_ms = _timed(plain, device, reps=3)
-        io_bytes = n * (3 * 4 + 64 * 2 + 8 * 4) + weight_bytes
-        flops = 2.0 * MACS_PER_POINT * n
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = io_bytes / PEAK_BYTES_PER_S * 1e3
-        return {"points": n, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "tflops": flops / (ms * 1e-3) / 1e12}
+        # 3 f32 + 64 bf16 in, 8 f32 out per point
+        return measure_launch(
+            lambda: warp_template_query(pk["offset"], pk["template"], pts,
+                                        pf),
+            lambda: warp_template_query_plain(pk["offset"], pk["template"],
+                                              pts, pf),
+            pts.shape[0], MACS_PER_POINT, 3 * 4 + 64 * 2 + 8 * 4,
+            weight_bytes, device)
 
     coarse = measure(*recorded[0])
     refine = measure(*recorded[-1])
@@ -212,92 +260,206 @@ def check_k1(capture, recorded, device):
             "coarse_launch": coarse}
 
 
-def run_frame(capture, item, device):
-    """Warm-up frame, then the counted and timed frame."""
+def _finite(tensors):
     import torch
-    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
-    capture.process_frame(item, w_recon=False, w_nerf=False)
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def run_frame(capture, item, device, **frame_kw):
+    """One counted and timed frame: the launch counts are set to 0 just
+    before it and read just after. Returns (results, record)."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
+                                                     warp_template_query)
     _sync(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.reset_peak_memory_stats(device)
     warp_template_query.launches = 0
+    recon_decode.launches = 0
     t0 = time.perf_counter()
-    res = capture.process_frame(item, w_recon=False, w_nerf=False)
+    res = capture.process_frame(item, w_nerf=False, **frame_kw)
     _sync(device)
     secs = time.perf_counter() - t0
-    launches = warp_template_query.launches
-    mesh = res["cano_mesh"]
-    n_tris = int(mesh.num_tris)
-    checks = [mesh.vertices, mesh.normals, res["live_mesh"].vertices,
-              res["front_avatar_normal"], res["back_avatar_normal"],
+    out = {"seconds": secs, "k1_launches": warp_template_query.launches,
+           "k2_launches": recon_decode.launches,
+           "num_tris": int(res["cano_mesh"].num_tris),
+           "overflow": bool(res["overflow"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    meshes = [res["cano_mesh"], res["live_mesh"]]
+    images = [res["front_avatar_normal"], res["back_avatar_normal"],
               *res["cano_phong"]]
-    if not all(bool(torch.isfinite(t).all()) for t in checks):
+    if "recon_mesh" in res:
+        out["recon_num_tris"] = int(res["recon_mesh"].num_tris)
+        out["recon_overflow"] = bool(res["recon_mesh"].overflow)
+        meshes += [res["recon_mesh"], res["live_recon_mesh"]]
+        images += [res["front_merged_normal"], res["front_image_normal"]]
+        if out["recon_num_tris"] <= 0:
+            raise AssertionError("the frame's ReconNet mesh has no triangles")
+    if not _finite([t for m in meshes for t in (m.vertices, m.normals)]
+                   + images):
         raise AssertionError("frame outputs are not finite")
-    if n_tris <= 0:
+    if out["num_tris"] <= 0:
         raise AssertionError("frame produced no triangles")
-    out = {"seconds": secs, "k1_launches": launches, "num_tris": n_tris,
-           "overflow": bool(res["overflow"])}
-    if device.type == "cuda":
-        out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return res, out
 
 
-def stage_times(capture, item, device):
-    """Seconds of each frame stage, synchronised around each."""
-    import torch
-    from avatarcap_tpu_torch.pipeline.avatar import FrameInputs
-    dev = capture.device
-    out = {}
+def stage_times(capture, item, device, **frame_kw):
+    """Synchronised seconds of each stage of one frame."""
+    clock = StageClock(device)
+    capture.process_frame(item, w_nerf=False, timer=clock, **frame_kw)
+    return clock.seconds
 
-    def timed(name, fn):
-        _sync(device)
-        t0 = time.perf_counter()
-        result = fn()
-        _sync(device)
-        out[name] = time.perf_counter() - t0
-        return result
+
+def k2_launch_inputs(capture, res):
+    """The (N, 33) inputs of the production frame's two K2 launches
+    (coarse, refine), recorded through the same recon_volume the frame
+    runs, from that frame's merged normals (this pass launches the kernel;
+    it is not the counted frame)."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import recon_decode
+    recorded = []
+
+    def decode(packed, feats):
+        recorded.append(feats)
+        return recon_decode(packed, feats)
 
     with torch.inference_mode():
-        frame = FrameInputs(
-            torch.as_tensor(item["live_smpl_v"], device=dev)[None],
-            torch.as_tensor(item["cano2live_jnt_mats"], device=dev)[None],
-            torch.as_tensor(item["smpl_pos_map"], device=dev)[None])
-        mesh, _ = timed("geometry",
-                        lambda: capture.avatar_geometry_stage(frame))
-        timed("cano_layers", lambda: capture.cano_layers_stage(mesh))
-        timed("skinning", lambda: capture.skinning_stage(
-            mesh, frame.cano2live_jnt_mats[0]))
+        feat_map = capture.recon.get_feat_maps(torch.cat(
+            [res["front_merged_normal"], res["back_avatar_normal"]], -1)[None])
+        capture.recon_volume(feat_map, decode=decode)
+    return recorded
+
+
+def check_k2(capture, recorded, device):
+    """K2 against its plain version on both launches' inputs; times
+    kernel, plain and bound."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import (
+        RECON_MACS_PER_POINT, recon_decode, recon_decode_plain)
+    pk = capture.packed_recon
+    err, median = 0.0, 0.0
+    for feats in recorded:
+        with torch.inference_mode():
+            got = recon_decode(pk, feats)
+            ref = recon_decode_plain(pk, feats)
+        _sync(device)
+        if not _finite([got]):
+            raise AssertionError("K2 output is not finite")
+        d = (got - ref).abs()
+        err = max(err, float(d.max()))
+        median = max(median, float(d.median()))
+    if err > K2_TOL or median > K2_MEDIAN_TOL:
+        raise AssertionError(
+            f"K2 disagrees with its plain version: max {err}, median "
+            f"{median} (tolerance {K2_TOL}, median {K2_MEDIAN_TOL})")
+    weight_bytes = sum(t.numel() * t.element_size() for t in pk)
+
+    def measure(feats):
+        # 33 f32 in, 1 f32 out per point
+        return measure_launch(lambda: recon_decode(pk, feats),
+                              lambda: recon_decode_plain(pk, feats),
+                              feats.shape[0], RECON_MACS_PER_POINT,
+                              33 * 4 + 4, weight_bytes, device)
+
+    coarse = measure(recorded[0])
+    refine = measure(recorded[-1])
+    # the kernel table reports the coarse launch, the larger of the two
+    return {"name": "recon_decode", "route": "cuda",
+            "source": "avatarcap_tpu_torch/csrc/recon_decode.cu",
+            "replaces": "avatarcap_tpu/ops/pallas_query.py:239",
+            "max_abs_err": err, "median_abs_err": median,
+            "tolerance": {"max": K2_TOL, "median": K2_MEDIAN_TOL},
+            **coarse, "library_ms": None, "refine_launch": refine}
+
+
+def production_frames(capture, item, recon_kw, device):
+    """Phase 5 up to the kernel check: the warm-up frame, K2's inputs and
+    its check. Returns the K2 record."""
+    res, _ = run_frame(capture, item, device, w_recon=True, **recon_kw)
+    recorded = k2_launch_inputs(capture, res)
+    del res
+    return check_k2(capture, recorded, device)
+
+
+def timed_production_frames(capture, item, recon_kw, device):
+    """Two timed frames, their drift, two more with deterministic cuDNN,
+    and the stage times."""
+    import torch
+    frames = []
+    for deterministic in (False, False, True, True):
+        torch.backends.cudnn.deterministic = deterministic
+        _, rec = run_frame(capture, item, device, w_recon=True, **recon_kw)
+        rec["cudnn_deterministic"] = deterministic
+        if rec["k1_launches"] != 2 or rec["k2_launches"] != 2:
+            raise AssertionError(
+                f"the production frame launched K1 {rec['k1_launches']} and "
+                f"K2 {rec['k2_launches']} times, expected 2 and 2 (coarse "
+                "+ refine)")
+        frames.append(rec)
+    torch.backends.cudnn.deterministic = False
+
+    def same(a, b):
+        return (a["num_tris"] == b["num_tris"]
+                and a["recon_num_tris"] == b["recon_num_tris"])
+
+    out = dict(frames[0])
+    out["runs"] = frames
+    out["drift"] = {"default_runs_agree": same(frames[0], frames[1]),
+                    "deterministic_runs_agree": same(frames[2], frames[3])}
+    out["stages"] = stage_times(capture, item, device, w_recon=True,
+                                **recon_kw)
     return out
 
 
 def check_small_frame(device):
-    """The avatar-only frame on a small subject, on the card and on the
-    CPU, through the f32 module path (use_fused_query=False) and through
-    K1 (its plain version on the CPU)."""
+    """The avatar-only and the production frame on a small subject, on the
+    card and on the CPU, through the f32 module path (use_fused_query=
+    False) and through the kernels (their plain versions on the CPU)."""
     import torch
     small = dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
-                 refine_capacity=1 << 16, raster_max_candidates=0,
-                 render_res=128, skin_row_group=1)
+                 refine_capacity=1 << 16, recon_max_tris=0,
+                 recon_max_active=0, recon_refine_capacity=0,
+                 raster_max_candidates=0, render_res=128, skin_row_group=1,
+                 fusion_iters=10)
     report = {}
     for fused in (False, True):
         opts = dict(small, use_fused_query=fused)
         outs = {}
         for dev in (device, torch.device("cpu")):
-            cap, item, _ = build_subject(dev, vol_res=(48, 48, 32),
-                                         dense=False, seed=1, options=opts)
-            res = cap.process_frame(item, w_recon=False, w_nerf=False)
-            outs[dev.type] = res
-        a, b = outs[device.type], outs["cpu"]
-        ta, tb = int(a["cano_mesh"].num_tris), int(b["cano_mesh"].num_tris)
-        na = a["front_avatar_normal"].cpu()
-        nb = b["front_avatar_normal"]
-        agree = float(((na - nb).abs().max(-1).values < 1e-2).float().mean())
-        key = "fused" if fused else "f32"
-        report[key] = {"num_tris_card": ta, "num_tris_cpu": tb,
-                       "normal_pixels_agreeing": agree}
-        if ta <= 0 or abs(ta - tb) > 0.01 * tb or agree < 0.99:
-            raise AssertionError(f"small frame ({key}) differs between the "
-                                 f"card and the CPU: {report[key]}")
+            cap, item, recon_kw, _ = build_subject(
+                dev, vol_res=(48, 48, 32), dense=False, seed=1, options=opts,
+                img_res=128)
+            outs[dev.type] = (
+                cap.process_frame(item, w_recon=False, w_nerf=False),
+                cap.process_frame(item, w_recon=True, w_nerf=False,
+                                  **recon_kw))
+        for w_recon in (False, True):
+            a, b = outs[device.type][w_recon], outs["cpu"][w_recon]
+            key = ("fused" if fused else "f32") + ("_w_recon" if w_recon
+                                                   else "")
+            pairs = [("num_tris", a["cano_mesh"], b["cano_mesh"])]
+            images = [("front_avatar_normal", a["front_avatar_normal"],
+                       b["front_avatar_normal"])]
+            if w_recon:
+                pairs.append(("recon_num_tris", a["recon_mesh"],
+                              b["recon_mesh"]))
+                images.append(("front_merged_normal",
+                               a["front_merged_normal"],
+                               b["front_merged_normal"]))
+            rec = {}
+            ok = True
+            for name, ma, mb in pairs:
+                ta, tb = int(ma.num_tris), int(mb.num_tris)
+                rec[name] = {"card": ta, "cpu": tb}
+                ok &= ta > 0 and abs(ta - tb) <= 0.01 * tb
+            for name, ia, ib in images:
+                agree = float(((ia.cpu() - ib).abs().max(-1).values < 1e-2)
+                              .float().mean())
+                rec[f"{name}_pixels_agreeing"] = agree
+                ok &= agree >= 0.99
+            report[key] = rec
+            if not ok:
+                raise AssertionError(f"small frame ({key}) differs between "
+                                     f"the card and the CPU: {rec}")
     return report
 
 
@@ -327,7 +489,7 @@ def main() -> int:
     record["build"] = build_kernels()
 
     t0 = time.perf_counter()
-    capture, item, n_valid = build_subject(device)
+    capture, item, recon_kw, n_valid = build_subject(device)
     record["subject"] = {"seconds": time.perf_counter() - t0,
                          "grid_valid_points": n_valid,
                          "vol_res": list(capture.grid.vol_res)}
@@ -339,27 +501,39 @@ def main() -> int:
     del recorded
     print(f"[k1] {json.dumps(k1)}")
 
-    _, frame = run_frame(capture, item, device)
-    k1["launches"] = frame["k1_launches"]
-    if frame["k1_launches"] != 2:
-        raise AssertionError(f"K1 launched {frame['k1_launches']} times in "
-                             "the frame, expected 2 (coarse + refine)")
-    frame["stages"] = stage_times(capture, item, device)
+    run_frame(capture, item, device, w_recon=False)           # warm-up
+    _, frame = run_frame(capture, item, device, w_recon=False)
+    if frame["k1_launches"] != 2 or frame["k2_launches"] != 0:
+        raise AssertionError(
+            f"the avatar-only frame launched K1 {frame['k1_launches']} and "
+            f"K2 {frame['k2_launches']} times, expected 2 and 0")
+    frame["stages"] = stage_times(capture, item, device, w_recon=False)
     record["frame"] = frame
     print(f"[frame] {json.dumps(frame)}")
+
+    k2 = production_frames(capture, item, recon_kw, device)
+    print(f"[k2] {json.dumps(k2)}")
+    frame_r = timed_production_frames(capture, item, recon_kw, device)
+    k1["launches"] = frame_r["k1_launches"]
+    k2["launches"] = frame_r["k2_launches"]
+    record["frame_w_recon"] = frame_r
+    print(f"[frame_w_recon] {json.dumps(frame_r)}")
+    del capture
 
     record["small_frame"] = check_small_frame(device)
     print(f"[small] {json.dumps(record['small_frame'])}")
 
-    kernels_line = {"kernels": [{k: k1[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}]}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels_line = {"kernels": [{k: kern[k] for k in keys}
+                                for kern in (k1, k2)]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     record["k1"] = k1
+    record["k2"] = k2
     record["gpu"] = smi
     record["seconds"] = time.perf_counter() - t_all
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -1,18 +1,21 @@
-"""The slice as a whole: the port's avatar-only capture frame,
-process_frame(item, w_recon=False, w_nerf=False), against the JAX frame
+"""The slice as a whole: the port's capture frames against the JAX frame
 on the fixture of tests/test_capture.py (48 x 48 x 32 grid, 128^2 renders,
-max_tris 1<<15, max_active 1<<13), rebuilt here.
+max_tris 1<<15, max_active 1<<13, fusion_iters 4), rebuilt here: the
+avatar-only frame, process_frame(item, w_recon=False, w_nerf=False), and
+the production frame, process_frame(item, w_recon=True, w_nerf=False),
+with a ReconNet from PRNGKey(1), the bench camera and inferred normal map
+at 128^2 and neck vertex 0.
 
 The geometry head's fc1_kernel gets numpy-drawn O(0.1) values on both
-sides, so the iso-surface is a real crossing and not the +-1e-5 init
-noise. With use_fused_query=False both sides run the f32 module path and
-compare tightly: equal triangle counts and overflow, slot-wise vertices
-and normals (ascending compaction makes slots comparable), the live mesh,
-and the canonical normal and Phong images outside the raster's eps-slack
-boundary band. With use_fused_query=True the port runs K1's plain version
-(bf16), held against a JAX frame whose grid query runs the Pallas K1 in
-interpret mode through the JAX package's own stage functions, at
-kernel-level tolerances.
+sides, and the ReconNet decoder head O(1) values, so both iso-surfaces
+are real crossings and not init noise. With use_fused_query=False both
+sides run the f32 module path and compare tightly: equal triangle counts
+and overflow, slot-wise vertices and normals (ascending compaction makes
+slots comparable), the live meshes, and the canonical images outside the
+raster's eps-slack boundary band. With use_fused_query=True the port runs
+the kernels' plain versions (bf16), held against JAX stages whose grid
+queries run the Pallas kernels in interpret mode through the JAX
+package's own stage functions, at kernel-level tolerances.
 """
 
 import dataclasses
@@ -88,6 +91,17 @@ def env():
     # a non-identity pose so the live mesh differs from the canonical one
     item["cano2live_jnt_mats"][:, :3, 3] = rs.uniform(-0.05, 0.05,
                                                       (params.num_joints, 3))
+    # the production frame's inputs: the bench camera at 128^2
+    from avatarcap_tpu.models.recon import ReconNetwork
+    from avatarcap_tpu_torch.tools.bench_workloads import bench_camera
+    item["w2c_RT"], camera, inferred = bench_camera(128)
+    recon = ReconNetwork()
+    recon_vars = jax.tree.map(
+        lambda a: np.asarray(a, np.float32),
+        jax.jit(recon.init)(jax.random.PRNGKey(1), jnp.zeros((1, 128, 128, 6)),
+                            jnp.zeros((1, 8, 3)), jnp.zeros((1, 3))))
+    recon_vars["params"]["image_decoder"]["fc3"]["kernel"] = \
+        rs.uniform(-1.0, 1.0, (128, 1)).astype(np.float32)
     jstatics = AvatarStatics(**{k: jnp.asarray(a)
                                 for k, a in statics_np.items()})
     jgrid = CaptureGrid(jnp.asarray(grid_np["valid_pts"]),
@@ -95,18 +109,47 @@ def env():
                         jnp.asarray(grid_np["prior_volume"]), vol_res)
     return dict(module=module, variables=variables, jstatics=jstatics,
                 jgrid=jgrid, statics_np=statics_np, grid_np=grid_np,
-                vol_res=vol_res, item=item)
+                vol_res=vol_res, item=item, recon=recon,
+                recon_vars=recon_vars,
+                recon_kw=dict(inferred_normal=inferred, neck_vertex_idx=0,
+                              camera=camera))
+
+
+@pytest.fixture(scope="module")
+def jax_recon_frames(env):
+    """The JAX production frame on the f32 path, per set of extra
+    options, computed once for the module's tests."""
+    from avatarcap_tpu.pipeline.capture import AvatarCapture, CaptureOptions
+    frames = {}
+
+    def get(**extra):
+        key = tuple(sorted(extra.items()))
+        if key not in frames:
+            jcap = AvatarCapture(
+                env["module"], env["variables"], env["jstatics"],
+                env["jgrid"], recon=env["recon"],
+                recon_vars=env["recon_vars"],
+                options=CaptureOptions(use_fused_query=False, **OPTS,
+                                       **extra))
+            frames[key] = jcap.process_frame(env["item"], w_recon=True,
+                                             w_nerf=False, **env["recon_kw"])
+        return frames[key]
+    return get
 
 
 def _port_capture(env, fused, **extra):
     from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+    from avatarcap_tpu_torch.models.recon import ReconNetwork
     from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureGrid,
                                                       CaptureOptions)
-    from avatarcap_tpu_torch.weights import avatar_state_dict_from_jax
+    from avatarcap_tpu_torch.weights import (avatar_state_dict_from_jax,
+                                             recon_state_dict_from_jax)
     port = GeoTexAvatar()
     port.load_state_dict(avatar_state_dict_from_jax(env["variables"]))
+    recon = ReconNetwork()
+    recon.load_state_dict(recon_state_dict_from_jax(env["recon_vars"]))
     statics = AvatarStatics(**{k: torch.as_tensor(np.array(a))
                                for k, a in env["statics_np"].items()})
     g = env["grid_np"]
@@ -114,7 +157,8 @@ def _port_capture(env, fused, **extra):
                        torch.as_tensor(g["valid_idx"]),
                        torch.as_tensor(g["prior_volume"]), env["vol_res"])
     opts = CaptureOptions(use_fused_query=fused, **OPTS, **extra)
-    return AvatarCapture(port, statics, grid, options=opts, device="cpu")
+    return AvatarCapture(port, statics, grid, recon=recon, options=opts,
+                         device="cpu")
 
 
 def _np(x):
@@ -262,11 +306,16 @@ def test_frame_fused_path_matches_jax_kernel(env):
 
 
 def test_unported_paths_raise(env):
+    """Only the NeRF color path (K3) and the other normal modes raise; a
+    w_recon frame without its inputs is refused with the reason."""
     cap = _port_capture(env, fused=False)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cap.process_frame(env["item"], w_recon=True)
     with pytest.raises(NotImplementedError, match="K3"):
         cap.process_frame(env["item"], w_recon=False, w_nerf=True)
+    with pytest.raises(NotImplementedError, match="K3"):
+        cap.process_frame(env["item"], w_recon=True, w_nerf=True,
+                          **env["recon_kw"])
+    with pytest.raises(ValueError, match="inferred_normal"):
+        cap.process_frame(env["item"], w_recon=True)
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureOptions)
     with pytest.raises(NotImplementedError):
@@ -282,3 +331,118 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked(env, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def _compare_mesh(gm, rm, tight_v=1e-5, loose_v=2e-4):
+    """Equal counts and overflow, then slot-wise (see the avatar-only
+    test for the bf16 corner values behind `loose`)."""
+    n = int(rm.num_tris)
+    assert int(gm.num_tris) == n > 100
+    assert bool(gm.overflow) == bool(_np(rm.overflow))
+    _close_mostly(gm.vertices.numpy(), _np(rm.vertices), tight_v, loose_v)
+    _close_mostly(gm.normals.numpy(), _np(rm.normals), 1e-4, 2e-2)
+
+
+@pytest.mark.parametrize("extra", [
+    {},                                                  # the main path
+    dict(hierarchical_query=False, skinning_mode="knn",
+         integrate_manner="cover")],
+    ids=["hierarchical-volume_skinning-merge", "flat-knn_skinning-cover"])
+def test_frame_w_recon_f32_path_matches_jax(env, jax_recon_frames, extra):
+    """The production frame, f32 module path on both sides: lifted image
+    normals, merged normals, the ReconNet mesh and its live copy, and the
+    frame's overflow bit. On this fixture the lifted normals cover ~100
+    canonical pixels in thin strips, which the merge's 3-step erosion
+    removes, so the merge keeps the avatar normals on both sides;
+    tests/test_torch_fusion.py holds the optimisation itself."""
+    ref = jax_recon_frames(**extra)
+    got = _port_capture(env, fused=False, **extra).process_frame(
+        env["item"], w_recon=True, w_nerf=False, **env["recon_kw"])
+    assert bool(got["overflow"]) == bool(_np(ref["overflow"]))
+    _compare_mesh(got["cano_mesh"], ref["cano_mesh"])
+    for key in ("front_image_normal", "front_merged_normal"):
+        a, b = got[key].numpy(), _np(ref[key])
+        ma, mb = np.abs(a).sum(-1) > 0, np.abs(b).sum(-1) > 0
+        assert mb.sum() > 50, key
+        assert (ma != mb).sum() <= max(3, int(5e-3 * mb.sum())), key
+        ok = _image_band_mask(ma, mb)
+        _close_mostly(a[ok], b[ok], 1e-4, 2e-2)
+    rm, gm = ref["recon_mesh"], got["recon_mesh"]
+    _compare_mesh(gm, rm)
+    _close_mostly(got["live_recon_mesh"].vertices.numpy(),
+                  _np(ref["live_recon_mesh"].vertices), 1e-5, 2e-4)
+    _close_mostly(got["live_recon_mesh"].normals.numpy(),
+                  _np(ref["live_recon_mesh"].normals), 1e-4, 2e-2)
+
+
+@pytest.mark.parametrize("hierarchical", [True, False],
+                         ids=["hierarchical", "flat"])
+def test_recon_fused_path_matches_jax_kernel(env, jax_recon_frames,
+                                             hierarchical):
+    """The port's recon stage through K2 (plain version on the CPU)
+    against a JAX recon stage whose grid query runs the interpret-mode
+    Pallas K2, both fed the JAX frame's merged normals; the coarse-to-fine
+    query and the flat one over every near-body node."""
+    from jax.experimental.pallas import tpu as pltpu
+    from avatarcap_tpu.models.recon import ReconNetwork
+    from avatarcap_tpu.ops.pallas_query import (pack_recon_weights,
+                                                recon_decode_fused)
+    from avatarcap_tpu.pipeline.avatar import grid_pose_features
+    from avatarcap_tpu.pipeline.capture import (CaptureOptions, _extract_mesh,
+                                                build_grid_hierarchy,
+                                                hierarchical_volume)
+    from avatarcap_tpu_torch.ops.fused_query import recon_decode
+    o = CaptureOptions(**OPTS)
+    st = env["jstatics"]
+    g = build_grid_hierarchy(env["jgrid"], st.cano_bounds)
+    frame = jax_recon_frames()
+    front = _np(frame["front_merged_normal"])
+    back = _np(frame["back_avatar_normal"])
+    img = np.concatenate([front, back], -1)[None]
+    feat = env["recon"].apply(env["recon_vars"], jnp.asarray(img),
+                              method=ReconNetwork.get_feat_maps)
+    cols = grid_pose_features(feat, st, g.vol_res, columns=True)
+    packed = pack_recon_weights(env["recon_vars"]["params"]["image_decoder"])
+    Z = g.vol_res[2]
+
+    def vfr(pts, fidx):
+        z = pts[:, 2] - st.cano_smpl_center[2]
+        return recon_decode_fused(
+            packed, jnp.concatenate([cols[fidx // Z], z[:, None]], -1))
+
+    prior01 = 0.5 * (g.prior_volume + 1.0)
+    with pltpu.force_tpu_interpret_mode():
+        if hierarchical:
+            vol, q_ovf = hierarchical_volume(
+                vfr, g, st.cano_bounds, 0.5 * (g.c_prior + 1.0), prior01,
+                0.5, o.hier_alpha,
+                o.recon_refine_capacity or o.refine_capacity)
+        else:
+            pf = grid_pose_features(feat, st, g.vol_res, g.valid_idx)
+            z = g.valid_pts[:, 2] - st.cano_smpl_center[2]
+            vol = prior01.at[g.valid_idx].set(
+                recon_decode_fused(packed, jnp.concatenate(
+                    [pf, z[:, None]], -1)), mode="drop")
+            q_ovf = np.zeros((), bool)
+    ref = _extract_mesh(vol, g, st.cano_bounds, 0.5, o.max_tris,
+                        o.max_active, o.normal_mode)
+
+    cap = _port_capture(env, fused=True, hierarchical_query=hierarchical)
+    before = recon_decode.launches
+    with torch.inference_mode():
+        tfeat = cap.recon.get_feat_maps(torch.tensor(img))
+        tvol, _ = cap.recon_volume(tfeat)
+        gm = cap.recon_stage(torch.tensor(front), torch.tensor(back))
+    assert recon_decode.launches == before            # CPU: plain version
+    # K2's bf16 noise (see tests/test_torch_recon.py) on the occupancy
+    np.testing.assert_allclose(tvol.numpy(), _np(vol), atol=5e-3)
+    # ... may move an iso crossing across a grid node in a handful of
+    # cells: counts agree to 0.5%, the shared prefix of slots mostly
+    n = int(ref.num_tris)
+    assert n > 100
+    assert abs(int(gm.num_tris) - n) <= max(2, n // 200)
+    assert bool(gm.overflow) == bool(_np(ref.overflow) | _np(q_ovf))
+    k = min(n, int(gm.num_tris))
+    same = np.all(np.abs(gm.vertices.numpy()[:3 * k]
+                         - _np(ref.vertices)[:3 * k]) < 2e-3, axis=-1)
+    assert same.mean() > 0.95

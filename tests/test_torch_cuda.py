@@ -4,16 +4,17 @@ so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-K1's tolerances against its plain version are those of the CPU test
-against the Pallas kernel (tests/test_torch_fused_query.py): both versions
-sum bf16 products in f32 in different orders, so a bf16 rounding of an
-activation can flip.
+K1's and K2's tolerances against their plain versions are those of the
+CPU tests against the Pallas kernels (tests/test_torch_fused_query.py,
+tests/test_torch_recon.py): both versions sum bf16 products in f32 in
+different orders, so a bf16 rounding of an activation can flip.
 """
 
 import pytest
 import torch
 
 ATOL = {"occ": 5e-3, "alpha": 5e-3, "rgb": 5e-3, "offset": 5e-4}
+K2_ATOL = 5e-3
 
 
 @pytest.fixture(scope="module")
@@ -32,6 +33,15 @@ def packed(card):
     model = random_avatar(torch.Generator().manual_seed(0)).to(card)
     with torch.no_grad():
         return pack_fused_query_weights(model)
+
+
+@pytest.fixture(scope="module")
+def packed_recon(card):
+    from avatarcap_tpu_torch.ops.fused_query import pack_recon_weights
+    from avatarcap_tpu_torch.tools.bench_workloads import random_recon
+    model = random_recon(torch.Generator().manual_seed(0)).to(card)
+    with torch.no_grad():
+        return pack_recon_weights(model.image_decoder)
 
 
 def _inputs(n, device, seed=0):
@@ -73,6 +83,39 @@ def test_k1_empty_and_invalid_inputs(card, packed):
     with pytest.raises(ValueError):
         warp_template_query(packed["offset"], packed["template"], pts,
                             pf[:, :32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_k2_kernel_matches_plain(card, packed_recon, n):
+    """Ragged point counts (the kernel's tile is 128 points)."""
+    from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
+                                                     recon_decode_plain)
+    gen = torch.Generator().manual_seed(n)
+    feats = torch.randn((n, 33), generator=gen).to(card)
+    before = recon_decode.launches
+    got = recon_decode(packed_recon, feats)
+    torch.cuda.synchronize()
+    assert recon_decode.launches == before + 1
+    ref = recon_decode_plain(packed_recon, feats)
+    assert got.shape == (n,) and got.device.type == "cuda"
+    torch.testing.assert_close(got, ref, atol=K2_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k2_empty_and_invalid_inputs(card, packed_recon):
+    from avatarcap_tpu_torch.ops.fused_query import recon_decode
+    before = recon_decode.launches
+    assert recon_decode(packed_recon,
+                        torch.zeros((0, 33), device=card)).shape == (0,)
+    assert recon_decode.launches == before
+    feats = torch.randn((10, 33), device=card)
+    with pytest.raises(ValueError):              # weights on another device
+        recon_decode(tuple(t.cpu() for t in packed_recon), feats)
+    with pytest.raises(ValueError):
+        recon_decode(packed_recon, feats[:, :32])
+    with pytest.raises(ValueError):
+        recon_decode(tuple(t.float() for t in packed_recon), feats)
 
 
 @pytest.mark.cuda
