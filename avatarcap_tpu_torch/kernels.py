@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-SOURCES = ("warp_template_query", "recon_decode")
+SOURCES = ("warp_template_query", "recon_decode", "ray_color_query",
+           "template_offset_query")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,32 +1,46 @@
-"""Fused point queries: kernels K1 and K2 of the port.
+"""Fused point and ray queries: kernels K1-K5 of the port.
 
-``warp_template_query`` (K1) replaces the Pallas kernel
-avatarcap_tpu/ops/pallas_query.py:warp_template_query_fused (pallas_call
-at :341, body _warp_template_core :255-296); ``recon_decode`` (K2)
-replaces :recon_decode_fused (pallas_call at :239, body _recon_kernel
-:188-200). On a CUDA tensor each wrapper launches its hand-written Hopper
-kernel (``csrc/warp_template_query.cu``, ``csrc/recon_decode.cu``) or
-raises; on a CPU tensor it runs its plain version, the same arithmetic in
-plain PyTorch. Nothing falls back from the card to the plain version.
+Each wrapper replaces one Pallas kernel of avatarcap_tpu/ops/pallas_query.py
+and launches a hand-written Hopper kernel on a CUDA tensor (or raises); on
+a CPU tensor it runs its plain version, the same arithmetic in plain
+PyTorch. Nothing falls back from the card to the plain version.
 
-What bounds both on an H100: operations. K1 does ~1.97 MFLOP per point
+  K1 ``warp_template_query``  :warp_template_query_fused (pallas_call
+     :341, body _warp_template_core :255-296), csrc/warp_template_query.cu
+  K2 ``recon_decode``         :recon_decode_fused (:239, _recon_kernel
+     :188-200), csrc/recon_decode.cu
+  K3 ``ray_color_query``      :ray_color_query_fused (:496,
+     _ray_color_kernel :362-440), csrc/ray_color_query.cu
+  K4 ``template_query``       :template_query_fused (:533,
+     _template_kernel :53-81), csrc/template_offset_query.cu
+  K5 ``offset_query``         :offset_query_fused (:172, _offset_kernel
+     :115-129), csrc/template_offset_query.cu
+K1, K3, K4 and K5 share one device implementation of the 20-layer chain
+(csrc/warp_template_core.cuh), and their plain versions share
+``_offset_plain`` and ``_template_plain``.
+
+What bounds all five on an H100: operations. K1 does ~1.97 MFLOP per point
 against ~172 B of input and output per point (3 f32 + 64 bf16 in, 8 f32
-out); K2 387,072 FLOP against 136 B (33 f32 in, 1 f32 out). Each kernel
-keeps a 128-point tile's activations in shared memory across all its
-layers, runs every product on bf16 tensor cores with f32 accumulators,
-and streams its packed weights (~2 MB, 387 KB) from L2 (see the sources'
-headers).
+out); K2 387,072 FLOP against 136 B (33 f32 in, 1 f32 out); K3 ~1.97 MFLOP
+per sample against (6 + A) f32 + 128 bf16 in and 3 f32 out per ray. Each
+kernel keeps a 128-point (or 128-ray) tile's activations in shared memory
+across all its layers, runs every product on bf16 tensor cores with f32
+accumulators, and streams its packed weights (~2 MB, 387 KB) from L2 (see
+the sources' headers).
 
 The contract of K1's two versions (the TPU kernel's rounding points):
 points rounded to bf16 only for the decoder input; the PE built from the
 f32 warped points; bf16 operands and f32 accumulation in every product;
 every activation rounded to bf16 after its nonlinearity; softplus =
 logaddexp(x, 0) in f32; eval BatchNorm folded into the packed weights.
-K2's: all 33 inputs rounded to bf16 (z included); bf16 operands and f32
-accumulation in every product, the f32 bias added after; every leaky
-ReLU (0.02) output rounded to bf16; skip concats [h, x] with the bf16
-input; the 128 -> 1 output not rounded before the f32 sigmoid; weight
-norm folded into the packed weights.
+K4 builds the PE from its f32 input points, K5 rounds all 67 inputs to
+bf16. K3 runs K1's chain per sample on bf16(f32 lerp of the bf16 end
+features) and folds the samples in order (no cumprod), every scalar step
+one f32 operation. K2's: all 33 inputs rounded to bf16 (z included); bf16
+operands and f32 accumulation in every product, the f32 bias added after;
+every leaky ReLU (0.02) output rounded to bf16; skip concats [h, x] with
+the bf16 input; the 128 -> 1 output not rounded before the f32 sigmoid;
+weight norm folded into the packed weights.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from avatarcap_tpu_torch.ops.embed import positional_encoding
@@ -46,8 +61,15 @@ OFFSET_SHAPES = ((256, 67), (256, 256), (256, 256), (256, 256),
 TEMPLATE_SHAPES = ((256, 63), (256, 256), (256, 256), (256, 256),
                    (256, 319), (256, 256), (256, 256), (128, 256), (2, 128),
                    (256, 256), (128, 256), (3, 128))
-# multiply-adds per point, from the shapes above (985,472 -> ~1.97 MFLOP)
-MACS_PER_POINT = sum(o * i for o, i in OFFSET_SHAPES + TEMPLATE_SHAPES)
+# multiply-adds per point, from the shapes above: K1 985,472 (~1.97
+# MFLOP), and per ray sample of K3; K4 557,184; K5 428,288
+OFFSET_MACS_PER_POINT = sum(o * i for o, i in OFFSET_SHAPES)
+TEMPLATE_MACS_PER_POINT = sum(o * i for o, i in TEMPLATE_SHAPES)
+MACS_PER_POINT = OFFSET_MACS_PER_POINT + TEMPLATE_MACS_PER_POINT
+OFFSET_IN_DIM = 3 + POSE_FEAT_DIM
+# K3's anchor distances per ray: 2 <= A <= MAX_ANCHORS (the kernel keeps
+# them in shared memory)
+MAX_ANCHORS = 16
 # (out, in) of K2's packed layers: 33 -> 512, [h, x] 545 -> 256,
 # [h, x] 289 -> 128, 128 -> 1
 RECON_IN_DIM = 33
@@ -119,31 +141,22 @@ def _dot(w: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h.float() @ w.float().T + b
 
 
-def warp_template_query_plain(packed_offset: Sequence[torch.Tensor],
-                              packed_template: Sequence[torch.Tensor],
-                              pts: torch.Tensor, pose_feat: torch.Tensor
-                              ) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch version of the kernel (same arithmetic, any device).
-
-    Args:
-      pts: (N, 3) canonical points; pose_feat: (N, 64) pose features.
-    Returns:
-      dict(occ (N, 1), alpha (N, 1), rgb (N, 3), offset (N, 3)), f32.
-    """
-    bf = torch.bfloat16
-    v = packed_offset
-    w = packed_template
-    pts = pts.float()
-    x = torch.cat([pts.to(bf), pose_feat.to(bf)], dim=-1)        # (N, 67)
+def _offset_plain(v: Sequence[torch.Tensor], x: torch.Tensor
+                  ) -> torch.Tensor:
+    """OffsetDecoder + head on bf16 inputs x (N, 67) -> (N, 3) f32."""
     h = x
     for i in range(4):
-        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(bf)
+        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(torch.bfloat16)
     h = torch.cat([x, h], dim=-1)                                # (N, 323)
     for i in range(4, 7):
-        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(bf)
-    off = _dot(v[14], h, v[15])                                  # (N, 3)
+        h = _softplus(_dot(v[2 * i], h, v[2 * i + 1])).to(torch.bfloat16)
+    return _dot(v[14], h, v[15])
 
-    pe = positional_encoding(pts + off, NUM_FREQS).to(bf)        # (N, 63)
+
+def _template_plain(w: Sequence[torch.Tensor], pts: torch.Tensor):
+    """DoubleTNet on f32 points (N, 3) -> (geo (N, 2), rgb (N, 3)), f32."""
+    bf = torch.bfloat16
+    pe = positional_encoding(pts, NUM_FREQS).to(bf)              # (N, 63)
     h = pe
     for i in range(4):
         h = torch.relu(_dot(w[2 * i], h, w[2 * i + 1])).to(bf)
@@ -156,9 +169,116 @@ def warp_template_query_plain(packed_offset: Sequence[torch.Tensor],
     geo = _dot(w[16], g, w[17])                                  # (N, 2)
     c = torch.relu(_dot(w[18], feat, w[19])).to(bf)
     c = torch.relu(_dot(w[20], c, w[21])).to(bf)
-    rgb = torch.sigmoid(_dot(w[22], c, w[23]))
+    return geo, torch.sigmoid(_dot(w[22], c, w[23]))
+
+
+def warp_template_query_plain(packed_offset: Sequence[torch.Tensor],
+                              packed_template: Sequence[torch.Tensor],
+                              pts: torch.Tensor, pose_feat: torch.Tensor
+                              ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of the kernel (same arithmetic, any device).
+
+    Args:
+      pts: (N, 3) canonical points; pose_feat: (N, 64) pose features.
+    Returns:
+      dict(occ (N, 1), alpha (N, 1), rgb (N, 3), offset (N, 3)), f32.
+    """
+    bf = torch.bfloat16
+    pts = pts.float()
+    off = _offset_plain(packed_offset,
+                        torch.cat([pts.to(bf), pose_feat.to(bf)], dim=-1))
+    geo, rgb = _template_plain(packed_template, pts + off)
     return {"occ": geo[:, 0:1], "alpha": torch.relu(geo[:, 1:2]),
             "rgb": rgb, "offset": off}
+
+
+def template_query_plain(packed_template: Sequence[torch.Tensor],
+                         pts: torch.Tensor):
+    """Plain PyTorch version of K4 (same arithmetic, any device).
+
+    Args:
+      pts: (N, 3) canonical points (the PE is built from them in f32).
+    Returns:
+      (rgb (N, 3), alpha (N, 1), occ (N, 1)), f32.
+    """
+    geo, rgb = _template_plain(packed_template, pts.float())
+    return rgb, torch.relu(geo[:, 1:2]), geo[:, 0:1]
+
+
+def offset_query_plain(packed_offset: Sequence[torch.Tensor],
+                       feats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5 (same arithmetic, any device).
+
+    Args:
+      feats: (N, 67) [pts (3), pose features (64)], all rounded to bf16.
+    Returns:
+      (N, 3) f32 offsets.
+    """
+    return _offset_plain(packed_offset, feats.float().to(torch.bfloat16))
+
+
+def _f32(x) -> float:
+    """x rounded to float32, as a Python float (exact in f32 arithmetic)."""
+    return float(np.float32(x))
+
+
+def ray_constants(n_samples: int, n_anchors: int, near: float, far: float):
+    """K3's scalar constants as the TPU kernel's weak-typed f32 scalars:
+    (near, gap = (far - near) / (S - 1), anchor step (A - 1) / (S - 1)),
+    each a quotient of Python floats rounded once to f32."""
+    return (_f32(near), _f32((far - near) / (n_samples - 1)),
+            _f32((n_anchors - 1) / (n_samples - 1)))
+
+
+def ray_color_query_plain(packed_offset: Sequence[torch.Tensor],
+                          packed_template: Sequence[torch.Tensor],
+                          ro: torch.Tensor, rd: torch.Tensor,
+                          pf0: torch.Tensor, pf1: torch.Tensor,
+                          danch: torch.Tensor, bounds: torch.Tensor,
+                          n_samples: int, near: float, far: float,
+                          threshold: float, chunk: int = 65536
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of K3 (same arithmetic, any device), over
+    chunks of ``chunk`` rays so that a full-size launch stays within a few
+    GB. See ``ray_color_query`` for the arguments; returns (R, 3) f32."""
+    near32, gap, step = ray_constants(n_samples, danch.shape[1], near, far)
+    thr = _f32(threshold)
+    bmin, bmax = bounds[0].float(), bounds[1].float()
+    f32 = np.float32
+    out = []
+    for c0 in range(0, ro.shape[0], chunk):
+        roc, rdc = ro[c0:c0 + chunk].float(), rd[c0:c0 + chunk].float()
+        p0 = pf0[c0:c0 + chunk].to(torch.bfloat16).float()
+        p1 = pf1[c0:c0 + chunk].to(torch.bfloat16).float()
+        dc = danch[c0:c0 + chunk].float()
+        trans = torch.ones_like(roc[:, 0])
+        acc = torch.zeros_like(roc)
+        for s in range(n_samples):
+            sf = f32(s)
+            z = float(f32(near32) + f32(gap) * sf)
+            w1 = f32(sf / f32(n_samples - 1))
+            pts = roc + rdc * z
+            pf = (p0 * float(f32(1.0) - w1) + p1 * float(w1)).to(
+                torch.bfloat16)
+            q = warp_template_query_plain(packed_offset, packed_template,
+                                          pts, pf)
+            pos = sf * f32(step)
+            seg = min(np.floor(pos), f32(danch.shape[1] - 2))
+            f = f32(pos - seg)
+            a0 = int(seg)
+            d = dc[:, a0] * float(f32(1.0) - f) + dc[:, a0 + 1] * float(f)
+            wpts = pts + q["offset"]
+            keep = ((d < thr) & (wpts > bmin).all(-1)
+                    & (wpts < bmax).all(-1))
+            sigma = torch.where(keep, q["alpha"][:, 0],
+                                torch.zeros_like(d))
+            alpha = 1.0 - torch.exp(-(sigma * gap))
+            acc = acc + (alpha * trans)[:, None] * q["rgb"]
+            trans = trans * ((1.0 - alpha) + 1e-10)
+        out.append(acc)
+    if not out:
+        return torch.zeros((0, 3), dtype=torch.float32, device=ro.device)
+    return torch.cat(out)
 
 
 def recon_decode_plain(packed: Sequence[torch.Tensor], feats: torch.Tensor
@@ -212,6 +332,11 @@ def _kernel_fns(name: str, prefix: str, launch_argtypes):
     return launch, err_str
 
 
+def _ptr_array(tensors: Sequence[torch.Tensor]):
+    """The tensors' device pointers as a C array (void *[])."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
 def _raise_on(err: int, err_str, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -244,8 +369,7 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    ptrs = (ctypes.c_void_p * 40)(
-        *[t.data_ptr() for t in tuple(packed_offset) + tuple(packed_template)])
+    ptrs = _ptr_array(tuple(packed_offset) + tuple(packed_template))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(pts.data_ptr(), pf.data_ptr(), n, ptrs, occ.data_ptr(),
@@ -298,7 +422,7 @@ def _recon_launch(packed, feats):
         "recon_decode", "recon_decode",
         [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
          ctypes.c_void_p, ctypes.c_void_p])
-    ptrs = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in packed])
+    ptrs = _ptr_array(packed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(feats.data_ptr(), n, ptrs, out.data_ptr(), stream)
@@ -328,3 +452,200 @@ def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
 
 
 recon_decode.launches = 0
+
+
+def _check_rays(ro, rd, pf0, pf1, danch, bounds, n_samples):
+    dev = ro.device
+    r = ro.shape[0]
+    if ro.dim() != 2 or ro.shape[1] != 3 or tuple(rd.shape) != (r, 3):
+        raise ValueError(f"ro, rd must be (R, 3), got {tuple(ro.shape)} and "
+                         f"{tuple(rd.shape)}")
+    for name, t in (("pf0", pf0), ("pf1", pf1)):
+        if tuple(t.shape) != (r, POSE_FEAT_DIM):
+            raise ValueError(f"{name} must be ({r}, {POSE_FEAT_DIM}), got "
+                             f"{tuple(t.shape)}")
+    if danch.dim() != 2 or danch.shape[0] != r:
+        raise ValueError(f"danch must be ({r}, A), got {tuple(danch.shape)}")
+    if not 2 <= danch.shape[1] <= MAX_ANCHORS:
+        raise ValueError(f"the ray kernel takes 2 <= A <= {MAX_ANCHORS} "
+                         f"anchors, got {danch.shape[1]}")
+    if n_samples < 2:
+        raise ValueError(f"n_samples must be >= 2 (the sample gap divides by "
+                         f"n_samples - 1), got {n_samples}")
+    if tuple(bounds.shape) != (2, 3):
+        raise ValueError(f"bounds must be (2, 3), got {tuple(bounds.shape)}")
+    for t in (rd, pf0, pf1, danch, bounds):
+        if t.device != dev:
+            raise ValueError(f"ray inputs must share one device, got "
+                             f"{t.device} and {dev}")
+    if r >= 2 ** 31 // 64:
+        raise ValueError("too many rays for one launch")
+
+
+def _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1, danch,
+                bounds, n_samples, near, far, threshold):
+    dev = ro.device
+    _check_weights(packed_offset, OFFSET_SHAPES, dev)
+    _check_weights(packed_template, TEMPLATE_SHAPES, dev)
+    r = ro.shape[0]
+    out = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    if r == 0:
+        return out
+    f32 = [t.to(torch.float32).contiguous() for t in (ro, rd, danch, bounds)]
+    bf = [t.to(torch.bfloat16).contiguous() for t in (pf0, pf1)]
+    near32, gap, step = ray_constants(n_samples, danch.shape[1], near, far)
+    launch, err_str = _kernel_fns(
+        "ray_color_query", "rcq",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
+        + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+           ctypes.c_void_p])
+    ptrs = _ptr_array(tuple(packed_offset) + tuple(packed_template))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(f32[0].data_ptr(), f32[1].data_ptr(), bf[0].data_ptr(),
+                     bf[1].data_ptr(), f32[2].data_ptr(), f32[3].data_ptr(),
+                     r, n_samples, danch.shape[1], near32, gap, step,
+                     _f32(threshold), ptrs, out.data_ptr(), stream)
+    _raise_on(err, err_str, "ray_color_query")
+    ray_color_query.launches += 1
+    return out
+
+
+def ray_color_query(packed_offset: Sequence[torch.Tensor],
+                    packed_template: Sequence[torch.Tensor],
+                    ro: torch.Tensor, rd: torch.Tensor, pf0: torch.Tensor,
+                    pf1: torch.Tensor, danch: torch.Tensor,
+                    bounds: torch.Tensor, n_samples: int, near: float,
+                    far: float, threshold: float) -> torch.Tensor:
+    """Per-ray color integral (inference): S samples z = linspace(near,
+    far, S) along each ray, pose features lerped between the ray's two
+    ends, K1's warp + template query per sample, the anchored near-body
+    flag and the strict bounds test on the warped point as masks, and the
+    raw2outputs compositing recurrence.
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``ray_color_query.launches``); CPU tensors run the plain version.
+
+    Args:
+      ro, rd: (R, 3) ray origins / directions (canonical space).
+      pf0, pf1: (R, 64) pose features at the ray's near / far ends
+        (rounded to bf16).
+      danch: (R, A) distances to the body at A uniform depth anchors,
+        2 <= A <= MAX_ANCHORS.
+      bounds: (2, 3) canonical bounds (min, max) for the warped points.
+      n_samples (>= 2), near, far: the sample grid.
+      threshold: the near-body distance (pipeline.avatar.NEAR_SMPL_DIST).
+    Returns:
+      (R, 3) composited colors, f32.
+    """
+    _check_rays(ro, rd, pf0, pf1, danch, bounds, n_samples)
+    if ro.device.type == "cuda":
+        return _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1,
+                           danch, bounds, n_samples, near, far, threshold)
+    if ro.device.type == "cpu":
+        return ray_color_query_plain(packed_offset, packed_template, ro, rd,
+                                     pf0, pf1, danch, bounds, n_samples,
+                                     near, far, threshold)
+    raise ValueError(f"unsupported device {ro.device}")
+
+
+ray_color_query.launches = 0
+
+
+def _template_launch(packed_template, pts):
+    dev = pts.device
+    n = pts.shape[0]
+    _check_weights(packed_template, TEMPLATE_SHAPES, dev)
+    pts = pts.to(torch.float32).contiguous()
+    rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    alpha = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    occ = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    if n == 0:
+        return rgb, alpha, occ
+    launch, err_str = _kernel_fns(
+        "template_offset_query", "tq",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(pts.data_ptr(), n, _ptr_array(packed_template),
+                     rgb.data_ptr(), alpha.data_ptr(), occ.data_ptr(), stream)
+    _raise_on(err, err_str, "template_query")
+    template_query.launches += 1
+    return rgb, alpha, occ
+
+
+def template_query(packed_template: Sequence[torch.Tensor],
+                   pts: torch.Tensor):
+    """DoubleTNet query on unwarped points (inference).
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``template_query.launches``); CPU tensors run the plain version.
+
+    Args:
+      packed_template: pack_template_weights output on the points' device.
+      pts: (N, 3) canonical points.
+    Returns:
+      (rgb (N, 3), alpha (N, 1), occ (N, 1)), f32.
+    """
+    if pts.dim() != 2 or pts.shape[1] != 3:
+        raise ValueError(f"pts must be (N, 3), got {tuple(pts.shape)}")
+    if pts.shape[0] >= 2 ** 31:
+        raise ValueError("too many points for one launch")
+    if pts.device.type == "cuda":
+        return _template_launch(packed_template, pts)
+    if pts.device.type == "cpu":
+        return template_query_plain(packed_template, pts)
+    raise ValueError(f"unsupported device {pts.device}")
+
+
+template_query.launches = 0
+
+
+def _offset_launch(packed_offset, feats):
+    dev = feats.device
+    n = feats.shape[0]
+    _check_weights(packed_offset, OFFSET_SHAPES, dev)
+    feats = feats.to(torch.float32).contiguous()
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    launch, err_str = _kernel_fns(
+        "template_offset_query", "oq",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+         ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(feats.data_ptr(), n, _ptr_array(packed_offset),
+                     out.data_ptr(), stream)
+    _raise_on(err, err_str, "offset_query")
+    offset_query.launches += 1
+    return out
+
+
+def offset_query(packed_offset: Sequence[torch.Tensor], feats: torch.Tensor
+                 ) -> torch.Tensor:
+    """Warp-offset decode (inference; BatchNorm from running stats).
+
+    CUDA tensors launch the Hopper kernel (counted in
+    ``offset_query.launches``); CPU tensors run the plain version.
+
+    Args:
+      packed_offset: pack_offset_weights output on the feats' device.
+      feats: (N, 67) [pts (3), pose features (64)].
+    Returns:
+      (N, 3) f32 offsets.
+    """
+    if feats.dim() != 2 or feats.shape[1] != OFFSET_IN_DIM:
+        raise ValueError(f"feats must be (N, {OFFSET_IN_DIM}), got "
+                         f"{tuple(feats.shape)}")
+    if feats.shape[0] >= 2 ** 31 // OFFSET_IN_DIM:
+        raise ValueError("too many points for one launch")
+    if feats.device.type == "cuda":
+        return _offset_launch(packed_offset, feats)
+    if feats.device.type == "cpu":
+        return offset_query_plain(packed_offset, feats)
+    raise ValueError(f"unsupported device {feats.device}")
+
+
+offset_query.launches = 0

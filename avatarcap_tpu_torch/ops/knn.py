@@ -1,11 +1,15 @@
 """Brute-force K nearest neighbors (counterpart of avatarcap_tpu/ops/knn.py:
-``knn`` and ``approx_lbs_weights``). Distances are squared L2, computed
-as |q|^2 - 2 q.v + |v|^2 with one f32 matmul per query chunk.
+``knn``, ``approx_lbs_weights`` and the near-body distance volume).
+Distances are squared L2, computed as |q|^2 - 2 q.v + |v|^2 with one f32
+matmul per query chunk.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from avatarcap_tpu_torch.ops.volume_render import linspace01
 
 
 def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
@@ -43,3 +47,62 @@ def approx_lbs_weights(points: torch.Tensor, smpl_vertices: torch.Tensor,
     w = torch.exp(-d2 / (2.0 * radius * radius))
     w = w / (w.sum(-1, keepdim=True) + 1e-16)
     return (skinning_weights[idx] * w[..., None]).sum(-2)
+
+
+def near_distance_volume(smpl_vertices: torch.Tensor, bounds: torch.Tensor,
+                         voxel: float = 0.025):
+    """Distance to the nearest body vertex on a regular canonical grid:
+    node (i, j, k) sits at lo + [i, j, k] / (n - 1) * (hi - lo), with
+    n = max(2, ceil((hi - lo) / voxel)) + 1 per axis (the layout
+    ``sample_distance_volume`` reads). One host readback of the bounds
+    sizes the grid. Returns (vol (X, Y, Z) f32 metres, res)."""
+    b = bounds.detach().cpu().double().numpy()
+    lo, hi = b[0], b[1]
+    res = tuple(int(max(2, np.ceil((hi[a] - lo[a]) / voxel)) + 1)
+                for a in range(3))
+    dev = smpl_vertices.device
+    lo32, hi32 = lo.astype(np.float32), hi.astype(np.float32)
+    lin = []
+    for a in range(3):
+        t = linspace01(res[a], device=dev)
+        lin.append(float(lo32[a]) * (1.0 - t) + float(hi32[a]) * t)
+    pts = torch.stack(torch.meshgrid(*lin, indexing="ij"), -1).reshape(-1, 3)
+    d2, _ = knn(pts, smpl_vertices, k=1, chunk=65536)
+    return torch.sqrt(d2[:, 0]).reshape(res), res
+
+
+def sample_distance_volume(vol: torch.Tensor, pts: torch.Tensor,
+                           bounds: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of a ``near_distance_volume`` at (N, 3) points.
+
+    Outside the bounds the trilinear value at the box projection c of p is
+    not a distance bound by itself; with |p - c| the distance to the box,
+    max(d(c) - |p - c|, |p - c|) is (every vertex lies inside the box, and
+    the distance field is 1-Lipschitz), and it reduces to the trilinear
+    sample inside the box.
+    """
+    lo, hi = bounds[0], bounds[1]
+    n = torch.tensor(vol.shape, dtype=pts.dtype, device=pts.device)
+    f = (pts - lo) / (hi - lo) * (n - 1.0)             # node coordinates
+    f = torch.minimum(torch.maximum(f, torch.zeros_like(f)), n - 1.0)
+    f0 = torch.floor(torch.minimum(f, n - 2.0))
+    w = f - f0
+    i0 = f0.long()
+    _, Y, Z = vol.shape
+    flat = vol.reshape(-1)
+
+    def at(dx, dy, dz):
+        return flat[((i0[:, 0] + dx) * Y + (i0[:, 1] + dy)) * Z
+                    + (i0[:, 2] + dz)]
+
+    wx, wy, wz = w[:, 0], w[:, 1], w[:, 2]
+    c00 = at(0, 0, 0) * (1 - wz) + at(0, 0, 1) * wz
+    c01 = at(0, 1, 0) * (1 - wz) + at(0, 1, 1) * wz
+    c10 = at(1, 0, 0) * (1 - wz) + at(1, 0, 1) * wz
+    c11 = at(1, 1, 0) * (1 - wz) + at(1, 1, 1) * wz
+    c0 = c00 * (1 - wy) + c01 * wy
+    c1 = c10 * (1 - wy) + c11 * wy
+    d_clamped = c0 * (1 - wx) + c1 * wx
+    d_box = torch.clamp(torch.maximum(lo - pts, pts - hi), min=0.0).norm(
+        dim=-1)
+    return torch.maximum(d_clamped - d_box, d_box)

@@ -239,15 +239,22 @@ class Mesh(NamedTuple):
     normals: torch.Tensor       # (3 * max_tris, 3) unit; padding = 0
     num_tris: torch.Tensor      # () int32
     overflow: torch.Tensor      # () bool
+    edge_ids: torch.Tensor = None  # (3 * max_tris,) int32 volume-edge keys
 
 
 def marching_tets(volume: torch.Tensor, iso: float,
                   bounds_min: torch.Tensor, voxel_size: torch.Tensor,
-                  max_tris: int = 1 << 20, max_active: int = 1 << 18) -> Mesh:
+                  max_tris: int = 1 << 20, max_active: int = 1 << 18,
+                  with_edge_ids: bool = False) -> Mesh:
     """Extract the iso-surface of a dense (X, Y, Z) volume ("inside" is
     value > iso) with the 256-case tables. World vertex = index * voxel +
     bounds_min + 0.5 voxel. Normals are the outward unit gradients of each
     cube's own trilinear interpolant at the emitted vertex.
+
+    with_edge_ids: also emit Mesh.edge_ids, the volume edge each soup
+    vertex interpolates, (flat index of its lower node << 3) | axis code
+    (4 x + 2 y + z of the edge's direction); -1 on slots past num_tris.
+    Every slot on the same edge carries the same key.
     """
     dev = volume.device
     X, Y, Z = volume.shape
@@ -318,7 +325,19 @@ def marching_tets(volume: torch.Tensor, iso: float,
     n = -n / n.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     n = torch.where(tri_valid[:, None, None], n, torch.zeros_like(n))
 
+    edge_ids = None
+    if with_edge_ids:
+        na = (base[:, None, :] + pa).long()                      # (T, 3, 3)
+        nb = (base[:, None, :] + pb).long()
+        nmin = torch.minimum(na, nb)
+        d = (nb != na).long()
+        flat = (nmin[..., 0] * Y + nmin[..., 1]) * Z + nmin[..., 2]
+        key = (flat << 3) | (d[..., 0] * 4 + d[..., 1] * 2 + d[..., 2])
+        edge_ids = torch.where(tri_valid[:, None], key,
+                               torch.full_like(key, -1)).reshape(
+                                   max_tris * 3).to(torch.int32)
+
     return Mesh(vertices=verts.reshape(max_tris * 3, 3),
                 normals=n.reshape(max_tris * 3, 3),
                 num_tris=torch.clamp(total, max=max_tris).to(torch.int32),
-                overflow=overflow)
+                overflow=overflow, edge_ids=edge_ids)

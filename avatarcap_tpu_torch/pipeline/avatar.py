@@ -1,5 +1,7 @@
 """GeoTexAvatar evaluation for capture (counterpart of
-avatarcap_tpu/pipeline/avatar.py:37-301, the inference half).
+avatarcap_tpu/pipeline/avatar.py, the inference half: the occupancy query,
+the grid pose features, and the masked query and volume rendering of the
+NeRF color path for canonical and template-space points).
 
 Plain functions over tensors; the pose feature map is an explicit
 activation computed once per pose. Layouts follow the JAX package's public
@@ -17,6 +19,14 @@ from avatarcap_tpu_torch.models.layers import f32_convolutions
 from avatarcap_tpu_torch.ops.fused_query import (pack_offset_weights,
                                                  pack_template_weights)
 from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
+from avatarcap_tpu_torch.ops.knn import knn
+from avatarcap_tpu_torch.ops.volume_render import (
+    raw2outputs, stratified_z_vals, z_vals_to_dists)
+
+# 8 cm body proximity gate of every near-body test (the reference's
+# arch_avatar.py:191): the masked query, the anchored ray flags, the
+# distance volume and the ray kernel's threshold
+NEAR_SMPL_DIST = 0.08
 
 
 class AvatarStatics(NamedTuple):
@@ -108,3 +118,85 @@ def grid_pose_features(pose_feat_map: torch.Tensor, statics: AvatarStatics,
     # padded (out-of-grid) indices clamp to the last column, as the JAX
     # gather does
     return pf_cols[(flat_idx.long() // Z).clamp(0, X * Y - 1)]
+
+
+def _near_flag(wpts: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) against (V, 3) -> (B, N) bool: within NEAR_SMPL_DIST of
+    the nearest vertex."""
+    return torch.stack([knn(q, verts, k=1)[0][:, 0]
+                        < NEAR_SMPL_DIST * NEAR_SMPL_DIST for q in wpts])
+
+
+def avatar_forward(model: GeoTexAvatar, wpts: torch.Tensor,
+                   dists: torch.Tensor, pose_feat_map: torch.Tensor,
+                   statics: AvatarStatics, pts_space: str = "cano"):
+    """Masked implicit query (f32 module path; the JAX package's
+    ``_forward_impl``/``avatar_forward``) of wpts (B, N, 3) with sample
+    lengths dists (B, N). ``cano`` points are warped by the pose-dependent
+    offsets before the template, ``temp`` points go to the template as
+    they are; both are near-body flagged before the warp. Density is kept
+    only inside the bounds (on the warped point) and near the body, then
+    turned into alpha = 1 - exp(-density dist).
+
+    Returns dict(raw (B, N, 4) rgb + alpha, occ (B, N, 1),
+    nonrigid_offset (B, N, 3)).
+    """
+    if pts_space == "posed":
+        raise NotImplementedError(
+            "pts_space='posed' needs inverse_skin_points, which comes with "
+            "the training slice of the port")
+    if pts_space not in ("cano", "temp"):
+        raise ValueError(f"unknown pts_space {pts_space!r}")
+    B = wpts.shape[0]
+    near_flag = _near_flag(wpts, statics.cano_smpl_vertices)
+    cano_pts = wpts
+    if pts_space == "cano":
+        center = statics.cano_smpl_center[None].expand(B, 3)
+        offsets = model.query_offsets(wpts, pose_feat_map, center)
+        cano_pts = wpts + offsets
+    else:
+        offsets = torch.zeros_like(wpts)
+    rgb, alpha, occ = model.query_template(cano_pts)
+    inside = ((cano_pts > statics.cano_bounds[0])
+              & (cano_pts < statics.cano_bounds[1])).all(-1)
+    alpha = torch.where((inside & near_flag)[..., None], alpha,
+                        torch.zeros_like(alpha))
+    alpha = 1.0 - torch.exp(-alpha * dists[..., None])
+    return {"raw": torch.cat([rgb, alpha], dim=-1), "occ": occ,
+            "nonrigid_offset": offsets}
+
+
+def render_rays(model: GeoTexAvatar, ray_o: torch.Tensor,
+                ray_d: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                depth: torch.Tensor, pose_feat_map: torch.Tensor,
+                statics: AvatarStatics, n_samples: int = 64,
+                perturb: bool = False,
+                generator: Optional[torch.Generator] = None,
+                pts_space: str = "cano", near_dist: float = 0.05,
+                far_dist: float = 0.05):
+    """Volume-render ray batches through the masked query.
+
+    Args:
+      ray_o, ray_d: (B, R, 3); near, far, depth: (B, R). Where depth >
+        1e-6 the band is [depth - near_dist, depth + far_dist].
+      generator: the uniform draws of ``perturb``.
+    Returns dict(rgb_map (B, R, 3), acc_map, depth_map (B, R), raw
+    (B, R*S, 4), occ (B, R*S, 1), nonrigid_offset (B, R*S, 3)).
+    """
+    B, R = ray_o.shape[:2]
+    has_depth = depth > 1e-6
+    near = torch.where(has_depth, depth - near_dist, near)
+    far = torch.where(has_depth, depth + far_dist, far)
+    z_vals = stratified_z_vals(near, far, n_samples, perturb, generator)
+    wpts = ray_o[:, :, None] + ray_d[:, :, None] * z_vals[..., None]
+    dists = z_vals_to_dists(z_vals)
+    out = avatar_forward(model, wpts.reshape(B, R * n_samples, 3),
+                         dists.reshape(B, R * n_samples), pose_feat_map,
+                         statics, pts_space)
+    ro = raw2outputs(out["raw"].reshape(B * R, n_samples, 4),
+                     z_vals.reshape(B * R, n_samples))
+    return {"rgb_map": ro.rgb_map.reshape(B, R, 3),
+            "acc_map": ro.acc_map.reshape(B, R),
+            "depth_map": ro.depth_map.reshape(B, R),
+            "raw": out["raw"], "occ": out["occ"],
+            "nonrigid_offset": out["nonrigid_offset"]}

@@ -10,13 +10,16 @@ interpolate them with the avatar normals and the Phong preview from one
 18-channel table, the front normals are merged by the two-phase
 optimisation, ReconNet (HGFilter features + coarse-to-fine pixel-aligned
 occupancy through kernel K2, or the f32 decoder) gives a second mesh, and
-that mesh is skinned too. The stage functions keep the JAX stages' static
+that mesh is skinned too. With ``w_nerf``: NeRF vertex colors, one
+64-sample color ray along -normal per unique vertex of the avatar soup
+(kernel K3, or the f32 module path), and for the ReconNet mesh either its
+own rays (``recon_color_mode="direct"``) or a nearest-neighbour transfer
+from the avatar's colors. The stage functions keep the JAX stages' static
 capacities, ascending compaction order and the aggregate ``overflow``
-bit, so meshes compare slot for slot with the JAX frame.
+bit, so meshes and colors compare slot for slot with the JAX frame.
 
-Not ported yet (they raise ``NotImplementedError``): ``w_nerf=True`` (NeRF
-vertex colors, kernel K3) and the ``mc_edge``/``sobel_sample`` normal
-modes.
+Not ported yet (they raise ``NotImplementedError``): the ``mc_edge`` and
+``sobel_sample`` normal modes.
 """
 
 from __future__ import annotations
@@ -39,13 +42,19 @@ from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
 from avatarcap_tpu_torch.models.recon import ReconNetwork
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
 from avatarcap_tpu_torch.ops.fused_query import (pack_recon_weights,
+                                                 ray_color_query,
                                                  recon_decode,
                                                  warp_template_query)
-from avatarcap_tpu_torch.ops.knn import approx_lbs_weights
+from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
+from avatarcap_tpu_torch.ops.knn import (approx_lbs_weights, knn,
+                                         near_distance_volume,
+                                         sample_distance_volume)
 from avatarcap_tpu_torch.ops.marching_cubes import marching_tets
+from avatarcap_tpu_torch.ops.volume_render import linspace01
 from avatarcap_tpu_torch.pipeline.avatar import (
-    AvatarStatics, FrameInputs, compute_pose_features, grid_pose_features,
-    pack_fused_query_weights, query_occupancy)
+    NEAR_SMPL_DIST, AvatarStatics, FrameInputs, compute_pose_features,
+    grid_pose_features, pack_fused_query_weights, query_occupancy,
+    render_rays)
 from avatarcap_tpu_torch.render.camera import (
     cano_front_back_mvp, gl_perspective_projection_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
@@ -82,14 +91,18 @@ class CaptureMesh(NamedTuple):
     num_tris: torch.Tensor       # ()
     valid: torch.Tensor          # (max_tris,) bool
     overflow: torch.Tensor = None  # () bool
+    edge_ids: torch.Tensor = None  # (3*max_tris,) volume-edge keys
+    # (ops/marching_cubes.Mesh.edge_ids), present on w_nerf frames whose
+    # soup is deduped
 
 
 @dataclasses.dataclass(frozen=True)
 class CaptureOptions:
     """The JAX package's CaptureOptions, field for field (see
-    avatarcap_tpu/pipeline/capture.py for each field's rationale). Fields
-    of the NeRF color path, which is not ported yet, are kept so
-    configurations carry over; that path raises."""
+    avatarcap_tpu/pipeline/capture.py for each field's rationale).
+    use_fused_query runs K1 and K2 for the grid queries, and K1 or K3 for
+    the NeRF colors (K3 for nerf_feat_mode="lerp" with
+    near_flag_mode="ray")."""
 
     iso_value: float = 0.0
     max_tris: int = 1 << 20
@@ -113,7 +126,7 @@ class CaptureOptions:
     near_flag_anchors: int = 4
     recon_unique_capacity: int = 0
     recon_color_mode: str = "nn"
-    use_fused_query: bool = True     # K1 and K2 for the grid queries
+    use_fused_query: bool = True
     skinning_mode: str = "volume"
     skin_voxel: float = 0.01
     skin_row_group: int = 1
@@ -252,23 +265,103 @@ def hierarchical_volume(value_fn, grid: CaptureGrid, cano_bounds, c_prior,
     return vol, q_overflow
 
 
+def _knn_chunk(database: torch.Tensor) -> int:
+    """Query chunk of a KNN against ``database`` that keeps its (chunk, M)
+    distance tile at 2^26 floats."""
+    return max(1, min(16384, (1 << 26) // max(1, database.shape[0])))
+
+
 def _stage(timer, name: str):
     """``timer(name)``, a context manager around one stage, or nothing."""
     return timer(name) if timer is not None else contextlib.nullcontext()
 
 
 def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
-                  max_active):
-    """Volume -> mesh with trilinear-gradient normals."""
+                  max_active, with_edge_ids: bool = False):
+    """Volume -> mesh with trilinear-gradient normals (and the soup's
+    volume-edge keys with ``with_edge_ids``)."""
     X, Y, Z = grid.vol_res
     vol = volume_flat.reshape(X, Y, Z)
     voxel = (bounds[1] - bounds[0]) / torch.tensor(
         [X, Y, Z], dtype=bounds.dtype, device=bounds.device)
     mesh = marching_tets(vol, iso, bounds[0], voxel, max_tris=max_tris,
-                         max_active=max_active)
+                         max_active=max_active, with_edge_ids=with_edge_ids)
     valid = torch.arange(max_tris, device=vol.device) < mesh.num_tris
     return CaptureMesh(mesh.vertices, mesh.normals, mesh.num_tris, valid,
-                       mesh.overflow)
+                       mesh.overflow, mesh.edge_ids)
+
+
+def anchor_distances(ro: torch.Tensor, rd: torch.Tensor, near: float,
+                     far: float, smpl_vertices: torch.Tensor,
+                     n_anchors: int = 4) -> torch.Tensor:
+    """Distance to the nearest body vertex at A uniform depth anchors,
+    linspace(near, far, A), per ray: (R, 3) rays -> (R, A). The masking
+    data of near_flag_mode="ray" (K3 interpolates it per sample)."""
+    za = torch.as_tensor(np.linspace(near, far, n_anchors).astype(np.float32),
+                         device=ro.device)
+    pts = ro[:, None, :] + rd[:, None, :] * za[None, :, None]   # (R, A, 3)
+    d2, _ = knn(pts.reshape(-1, 3), smpl_vertices, k=1, chunk=65536)
+    return torch.sqrt(d2[:, 0]).reshape(ro.shape[0], n_anchors)
+
+
+def anchored_near_flags(ro: torch.Tensor, rd: torch.Tensor, near: float,
+                        far: float, n_samples: int,
+                        smpl_vertices: torch.Tensor,
+                        threshold: float = NEAR_SMPL_DIST,
+                        n_anchors: int = 4) -> torch.Tensor:
+    """Near-body flags of every sample (depths linspace(near, far, S)) of
+    every ray, from the anchor distances interpolated linearly between the
+    two bracketing anchors (the distance field is 1-Lipschitz, so the
+    interpolation is within half an anchor gap). Returns (R, S) bool."""
+    za = np.linspace(near, far, n_anchors).astype(np.float32)
+    zs = np.linspace(near, far, n_samples).astype(np.float32)
+    seg = np.clip(np.searchsorted(za, zs) - 1, 0, n_anchors - 2)
+    w1 = (zs - za[seg]) / (za[seg + 1] - za[seg])
+    W = np.zeros((n_samples, n_anchors), np.float32)
+    W[np.arange(n_samples), seg] = 1.0 - w1
+    W[np.arange(n_samples), seg + 1] = w1
+    d = anchor_distances(ro, rd, near, far, smpl_vertices,
+                         n_anchors=n_anchors)
+    return d @ torch.as_tensor(W.T, device=d.device) < threshold
+
+
+def _dedupe_soup(tri_valid: torch.Tensor, edge_ids: torch.Tensor,
+                 capacity: int):
+    """Group triangle-soup slots by their shared volume-edge vertex: a
+    stable sort of the keys and a segment scan give each slot a dense
+    unique index (first-seen order of the sorted keys), with no host
+    readback.
+
+    Args:
+      tri_valid: (T,) bool; edge_ids: (3T,) keys (>= 0 where valid);
+      capacity: the unique-vertex capacity U.
+    Returns:
+      rep (U,) one representative slot per unique vertex (the first of its
+        group in sorted order; 0 past the populated ones), uo (3T,) each
+        slot's unique index clamped into [0, U), valid_v (3T,) bool,
+        valid_u (U,) bool, overflow () bool (more unique vertices than U).
+    """
+    imax = torch.iinfo(torch.int32).max
+    valid_v = tri_valid.repeat_interleave(3) & (edge_ids >= 0)
+    ids = torch.where(valid_v, edge_ids.to(torch.int32),
+                      torch.full_like(edge_ids, imax, dtype=torch.int32))
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    newf = torch.cat([torch.ones(1, dtype=torch.bool, device=ids.device),
+                      sid[1:] != sid[:-1]])
+    seg = torch.cumsum(newf.long(), 0) - 1
+    vsort = sid != imax
+    n_unique = torch.where(vsort, seg + 1, torch.zeros_like(seg)).max()
+    overflow = n_unique > capacity
+    # out-of-range unique indices drop, as mode="drop" does
+    first = newf & vsort & (seg < capacity)
+    rep = torch.zeros(capacity + 1, dtype=torch.long, device=ids.device)
+    rep[torch.where(first, seg, torch.full_like(seg, capacity))] = order
+    uo = torch.empty_like(order)
+    uo[order] = seg.clamp(max=capacity - 1)
+    valid_u = (torch.arange(capacity, device=ids.device)
+               < n_unique.clamp(max=capacity))
+    return rep[:capacity], uo, valid_v, valid_u, overflow
 
 
 class AvatarCapture:
@@ -278,12 +371,15 @@ class AvatarCapture:
       avatar: the port's GeoTexAvatar (weights loaded; put in eval mode).
       statics: AvatarStatics; grid: CaptureGrid (tensors or arrays).
       recon: the port's ReconNetwork, needed by ``w_recon=True`` frames.
+      tex_avatar: an optional texture-finetuned GeoTexAvatar for the NeRF
+        colors; None = the geometry avatar.
       device: None = the card (raises without one); "cpu" runs the plain
         PyTorch path everywhere, with the kernels' plain versions.
     """
 
     def __init__(self, avatar: GeoTexAvatar, statics: AvatarStatics,
                  grid: CaptureGrid, recon: Optional[ReconNetwork] = None,
+                 tex_avatar: Optional[GeoTexAvatar] = None,
                  options: CaptureOptions = CaptureOptions(), device=None):
         o = options
         if o.normal_mode != "trilinear":
@@ -293,6 +389,8 @@ class AvatarCapture:
         self.device = resolve_device(device)
         self.opt = o
         self.avatar = avatar.to(self.device).eval()
+        self.tex_avatar = (tex_avatar.to(self.device).eval()
+                           if tex_avatar is not None else self.avatar)
         self.recon = (recon.to(self.device).eval() if recon is not None
                       else None)
         self.statics = statics.to(self.device)
@@ -310,6 +408,11 @@ class AvatarCapture:
         with torch.inference_mode():
             self.packed_query = (pack_fused_query_weights(self.avatar)
                                  if o.use_fused_query else None)
+            # the color stages take packed_tex, falling back to
+            # packed_query without a texture avatar
+            self.packed_tex = (pack_fused_query_weights(self.tex_avatar)
+                               if o.use_fused_query
+                               and tex_avatar is not None else None)
             self.packed_recon = (
                 pack_recon_weights(self.recon.image_decoder)
                 if o.use_fused_query and self.recon is not None else None)
@@ -320,6 +423,13 @@ class AvatarCapture:
                     self.statics.cano_bounds, voxel=o.skin_voxel)
             else:
                 self.skin_wvol = None
+            # read only by the fused NeRF colors' chunked body
+            self.near_d_vol = (
+                near_distance_volume(self.statics.cano_smpl_vertices,
+                                     self.statics.cano_bounds,
+                                     voxel=o.near_flag_voxel)[0]
+                if o.near_flag_mode == "volume" and o.use_fused_query
+                else None)
         if o.skinning_mode == "volume" and o.skin_row_group > 1:
             # triangle-grouped rows are a bounded approximation only when
             # an extraction triangle fits within about one skinning cell
@@ -336,9 +446,11 @@ class AvatarCapture:
 
     # -- stages --------------------------------------------------------
 
-    def avatar_geometry_stage(self, frame: FrameInputs):
-        """Pose features -> canonical occupancy volume -> mesh.
-        Returns (CaptureMesh, pose feature map (1, H, W, C))."""
+    def avatar_geometry_stage(self, frame: FrameInputs,
+                              want_edge_ids: bool = False):
+        """Pose features -> canonical occupancy volume -> mesh (with its
+        volume-edge keys when ``want_edge_ids`` and the NeRF colors are
+        deduped). Returns (CaptureMesh, pose feature map (1, H, W, C))."""
         o = self.opt
         g = self.grid
         st = self.statics
@@ -380,7 +492,8 @@ class AvatarCapture:
                 vol = _scatter_set(g.prior_volume, g.valid_idx,
                                    vf_f32(g.valid_pts, None))
         mesh = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
-                             o.max_active)
+                             o.max_active, with_edge_ids=want_edge_ids
+                             and o.nerf_unique_capacity > 0)
         if q_ovf is not None:
             mesh = mesh._replace(overflow=mesh.overflow | q_ovf)
         return mesh, feat
@@ -515,10 +628,12 @@ class AvatarCapture:
                                    0.5, o.hier_alpha, capacity)
 
     def recon_stage(self, front_normal: torch.Tensor,
-                    back_normal: torch.Tensor, timer=None) -> CaptureMesh:
+                    back_normal: torch.Tensor, timer=None,
+                    want_edge_ids: bool = False) -> CaptureMesh:
         """Fused front|back normals -> HGFilter features -> occupancy
-        volume -> mesh. ``timer`` (see process_frame) sees "hgfilter" and
-        "recon_query_mc"."""
+        volume -> mesh (with its volume-edge keys when ``want_edge_ids``
+        and the recon soup is deduped). ``timer`` (see process_frame) sees
+        "hgfilter" and "recon_query_mc"."""
         o = self.opt
         with _stage(timer, "hgfilter"):
             feat_map = self.recon.get_feat_maps(
@@ -527,10 +642,182 @@ class AvatarCapture:
             vol, q_ovf = self.recon_volume(feat_map)
             mesh = _extract_mesh(vol, self.grid, self.statics.cano_bounds,
                                  0.5, o.recon_max_tris or o.max_tris,
-                                 o.recon_max_active or o.max_active)
+                                 o.recon_max_active or o.max_active,
+                                 with_edge_ids=want_edge_ids
+                                 and o.recon_unique_capacity > 0)
             if q_ovf is not None:
                 mesh = mesh._replace(overflow=mesh.overflow | q_ovf)
         return mesh
+
+    # -- NeRF vertex colors ----------------------------------------------
+
+    def _nerf_ray_colors_chunked(self, feat: torch.Tensor, v: torch.Tensor,
+                                 n: torch.Tensor) -> torch.Tensor:
+        """One color ray per row of (v, n), origin v + n and direction -n
+        over the depth band [0.98, 1.05], through render_rays (the f32
+        module path of the texture avatar), nerf_chunk rays at a time.
+        Returns (N, 3)."""
+        o = self.opt
+        out = []
+        for c0 in range(0, v.shape[0], o.nerf_chunk):
+            vv, nn_ = v[c0:c0 + o.nerf_chunk], n[c0:c0 + o.nerf_chunk]
+            depth = torch.ones_like(vv[:, 0])[None]
+            res = render_rays(self.tex_avatar, (vv + nn_)[None], -nn_[None],
+                              depth - 0.05, depth + 0.05, depth, feat,
+                              self.statics, n_samples=o.n_samples,
+                              pts_space="cano", near_dist=0.02,
+                              far_dist=0.05)
+            out.append(res["rgb_map"][0])
+        return torch.cat(out)
+
+    def _nerf_ray_colors_fused(self, packed, feat: torch.Tensor,
+                               v: torch.Tensor, n: torch.Tensor,
+                               ray_query=ray_color_query) -> torch.Tensor:
+        """The same ray integral through the kernels. With
+        nerf_feat_mode="lerp" and near_flag_mode="ray" the whole integral
+        is one K3 launch (``ray_query``, K3's wrapper; a caller may wrap it
+        to see the launch's inputs). Otherwise nerf_chunk rays at a time
+        through K1 per sample, with the pose features lerped in bf16
+        between the ray's ends ("lerp") or fetched per sample ("exact"),
+        the near-body flag from the anchors ("ray"), the distance volume
+        ("volume") or an exact KNN ("knn"), and the compositing written
+        out. Returns (N, 3)."""
+        o = self.opt
+        st = self.statics
+        U = v.shape[0]
+        S = o.n_samples
+        near, far = 1.0 - 0.02, 1.0 + 0.05               # depth-guided band
+        t = linspace01(S, device=v.device)
+        z = near * (1.0 - t) + far * t                     # (S,)
+        dz = torch.cat([z[1:] - z[:-1], (z[-1] - z[-2])[None]])
+        center = st.cano_smpl_center
+        feat_nchw = feat.permute(0, 3, 1, 2)
+        ro = v + n
+        rd = -n
+        lerp = o.nerf_feat_mode == "lerp"
+        if lerp:
+            ends = torch.cat([ro + rd * near, ro + rd * far])
+            pf_ends = sample_feature_map_at_points(
+                feat_nchw, (ends - center)[None])[0].to(torch.bfloat16)
+            pf0, pf1 = pf_ends[:U], pf_ends[U:]
+            if o.near_flag_mode == "ray":
+                danch = anchor_distances(ro, rd, near, far,
+                                         st.cano_smpl_vertices,
+                                         n_anchors=o.near_flag_anchors)
+                return ray_query(packed["offset"], packed["template"], ro,
+                                 rd, pf0, pf1, danch, st.cano_bounds,
+                                 n_samples=S, near=near, far=far,
+                                 threshold=NEAR_SMPL_DIST)
+            w = ((z - near) / (far - near)).to(torch.bfloat16)
+        out = []
+        for c0 in range(0, U, o.nerf_chunk):
+            roc, rdc = ro[c0:c0 + o.nerf_chunk], rd[c0:c0 + o.nerf_chunk]
+            pts = (roc[:, None, :] + rdc[:, None, :] * z[None, :, None]
+                   ).reshape(-1, 3)
+            if lerp:
+                p0c = pf0[c0:c0 + o.nerf_chunk]
+                p1c = pf1[c0:c0 + o.nerf_chunk]
+                pf = (p0c[:, None, :] * (1.0 - w)[None, :, None]
+                      + p1c[:, None, :] * w[None, :, None]
+                      ).reshape(-1, p0c.shape[-1])
+            else:
+                pf = sample_feature_map_at_points(
+                    feat_nchw, (pts - center)[None])[0]
+            q = warp_template_query(packed["offset"], packed["template"],
+                                    pts, pf)
+            # near flag on the pre-warp sample, bounds on the warped point
+            if o.near_flag_mode == "ray":
+                near_ok = anchored_near_flags(
+                    roc, rdc, near, far, S, st.cano_smpl_vertices,
+                    n_anchors=o.near_flag_anchors).reshape(-1)
+            elif o.near_flag_mode == "volume" and self.near_d_vol is not None:
+                near_ok = sample_distance_volume(
+                    self.near_d_vol, pts, st.cano_bounds) < NEAR_SMPL_DIST
+            else:
+                near_ok = (knn(pts, st.cano_smpl_vertices, k=1)[0][:, 0]
+                           < NEAR_SMPL_DIST * NEAR_SMPL_DIST)
+            wpts = pts + q["offset"]
+            inside = ((wpts > st.cano_bounds[0])
+                      & (wpts < st.cano_bounds[1])).all(-1)
+            sigma = torch.where(inside & near_ok, q["alpha"][:, 0],
+                                torch.zeros_like(near_ok, dtype=torch.float32))
+            alpha = 1.0 - torch.exp(-sigma.reshape(-1, S) * dz[None, :])
+            # exclusive transmittance, as ops/volume_render.raw2outputs
+            trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+            trans = torch.cat([torch.ones_like(trans[:, :1]),
+                               trans[:, :-1]], dim=-1)
+            out.append(torch.einsum("rs,rsc->rc", alpha * trans,
+                                    q["rgb"].reshape(-1, S, 3)))
+        return torch.cat(out)
+
+    def _ray_colors(self, feat, v, n, ray_query=ray_color_query):
+        """Colors of the rays at (v, n): the kernels with use_fused_query
+        (the texture avatar's packed weights), else the f32 path."""
+        if self.opt.use_fused_query:
+            packed = (self.packed_tex if self.packed_tex is not None
+                      else self.packed_query)
+            return self._nerf_ray_colors_fused(packed, feat, v, n,
+                                               ray_query=ray_query)
+        return self._nerf_ray_colors_chunked(feat, v, n)
+
+    def nerf_color_stage(self, feat: torch.Tensor, cano_mesh: CaptureMesh,
+                         ray_query=ray_color_query):
+        """Vertex colors of the avatar soup, integrated along -normal rays
+        in canonical space. With nerf_unique_capacity > 0 (and the soup's
+        edge keys) one ray per unique vertex, its color scattered back to
+        every slot of that vertex; otherwise one ray per slot through the
+        f32 path.
+
+        Returns (colors (3*max_tris, 3) as integrated, BGR like the
+        reference's network output; overflow (); uniq), uniq being None on
+        the per-slot path or (v_u (U, 3), rgb_u (U, 3), valid_u (U,)).
+        """
+        v, n = cano_mesh.vertices, cano_mesh.normals
+        U = self.opt.nerf_unique_capacity
+        if not U or cano_mesh.edge_ids is None:
+            return (self._nerf_ray_colors_chunked(feat, v, n),
+                    torch.zeros((), dtype=torch.bool, device=v.device), None)
+        rep, uo, valid_v, valid_u, overflow = _dedupe_soup(
+            cano_mesh.valid, cano_mesh.edge_ids, U)
+        v_u = v[rep]
+        rgb_u = self._ray_colors(feat, v_u, n[rep], ray_query)
+        rgb = torch.where(valid_v[:, None], rgb_u[uo],
+                          torch.zeros_like(v))
+        return rgb, overflow, (v_u, rgb_u, valid_u)
+
+    def color_transfer_stage(self, feat: torch.Tensor, recon_mesh: CaptureMesh,
+                             avatar_verts: torch.Tensor,
+                             avatar_colors: torch.Tensor, uniq,
+                             ray_query=ray_color_query):
+        """Vertex colors of the ReconNet soup (RGB). Without a deduped
+        recon soup: each slot takes the color of its nearest avatar soup
+        slot. Deduped, per unique recon vertex: recon_color_mode="direct"
+        integrates its own color ray; "nn" takes the nearest unique avatar
+        vertex's color. Returns (colors (3*recon_max_tris, 3), overflow)."""
+        o = self.opt
+        Ur = o.recon_unique_capacity
+        if not Ur or uniq is None or recon_mesh.edge_ids is None:
+            _, idx = knn(recon_mesh.vertices, avatar_verts, k=1,
+                         chunk=_knn_chunk(avatar_verts))
+            return (avatar_colors[idx[:, 0]],
+                    torch.zeros((), dtype=torch.bool,
+                                device=avatar_verts.device))
+        rep_r, uo_r, valid_r, _, overflow = _dedupe_soup(
+            recon_mesh.valid, recon_mesh.edge_ids, Ur)
+        if o.recon_color_mode == "direct":
+            rgb_u = self._ray_colors(feat, recon_mesh.vertices[rep_r],
+                                     recon_mesh.normals[rep_r], ray_query)
+            rgb_r = rgb_u.flip(-1)[uo_r]                  # BGR -> RGB
+        else:
+            v_u, rgb_u, valid_u = uniq
+            # unused capacity parks far away, so it never is the nearest
+            db = torch.where(valid_u[:, None], v_u,
+                             torch.full_like(v_u, 1e9))
+            _, idx = knn(recon_mesh.vertices[rep_r], db, k=1,
+                         chunk=_knn_chunk(db))
+            rgb_r = rgb_u.flip(-1)[idx[:, 0]][uo_r]       # BGR -> RGB
+        return (torch.where(valid_r[:, None], rgb_r, torch.zeros_like(rgb_r)),
+                overflow)
 
     def _neck_xy(self, neck_vertex_idx: int):
         """(x, y) of the neck vertex on the canonical front image (host
@@ -557,18 +844,16 @@ class AvatarCapture:
           w_recon: fuse the image normals and reconstruct with ReconNet
             (needs ``recon`` at construction, ``inferred_normal`` (H, W,
             3), ``neck_vertex_idx`` and ``camera`` dict(fx, fy, cx, cy)).
+          w_nerf: NeRF vertex colors of the avatar soup (and, with
+            ``w_recon``, of the ReconNet soup).
           timer: optional callable, ``timer(stage_name)`` -> a context
             manager wrapped around each stage (for per-stage timing).
         Returns dict(cano_mesh, live_mesh, cano_phong, front_avatar_normal,
-        back_avatar_normal, overflow) and, with ``w_recon``,
+        back_avatar_normal, overflow); with ``w_recon`` also
         front_merged_normal, front_image_normal, recon_mesh and
-        live_recon_mesh.
+        live_recon_mesh; with ``w_nerf`` also avatar_colors (RGB per soup
+        slot) and, with ``w_recon``, recon_colors.
         """
-        if w_nerf:
-            raise NotImplementedError(
-                "process_frame(w_nerf=True) needs the NeRF color path and "
-                "kernel K3 (ray_color_query_fused), which come with a later "
-                "slice of the port")
         if w_recon and (self.recon is None or inferred_normal is None
                         or neck_vertex_idx is None or camera is None):
             raise ValueError(
@@ -588,7 +873,8 @@ class AvatarCapture:
                 smpl_pos_map=tensor(item["smpl_pos_map"])[None])
             jnt_mats = frame.cano2live_jnt_mats[0]
             with _stage(timer, "geometry"):
-                cano_mesh, _ = self.avatar_geometry_stage(frame)
+                cano_mesh, feat = self.avatar_geometry_stage(
+                    frame, want_edge_ids=w_nerf)
             with _stage(timer, "skinning"):
                 live_mesh, pt_mats = self.skinning_stage(cano_mesh, jnt_mats)
             if w_recon:
@@ -624,7 +910,8 @@ class AvatarCapture:
                             front_avatar_n, front_img_n)
                 # the back keeps the avatar normals (as the reference)
                 recon_mesh = self.recon_stage(front_merged, back_avatar_n,
-                                              timer=timer)
+                                              timer=timer,
+                                              want_edge_ids=w_nerf)
                 with _stage(timer, "recon_skinning"):
                     live_recon, _ = self.skinning_stage(recon_mesh, jnt_mats)
                 overflow = overflow | lift_ovf | recon_mesh.overflow
@@ -632,5 +919,19 @@ class AvatarCapture:
                                 "front_image_normal": front_img_n,
                                 "recon_mesh": recon_mesh,
                                 "live_recon_mesh": live_recon})
+            if w_nerf:
+                with _stage(timer, "nerf_colors"):
+                    colors, nerf_ovf, uniq = self.nerf_color_stage(
+                        feat, cano_mesh)
+                # BGR -> RGB, as the reference's vertex colors
+                results["avatar_colors"] = colors.flip(-1)
+                overflow = overflow | nerf_ovf
+                if w_recon:
+                    with _stage(timer, "color_transfer"):
+                        recon_colors, xfer_ovf = self.color_transfer_stage(
+                            feat, recon_mesh, cano_mesh.vertices,
+                            results["avatar_colors"], uniq)
+                    results["recon_colors"] = recon_colors
+                    overflow = overflow | xfer_ovf
             results["overflow"] = overflow
         return results

@@ -1,7 +1,7 @@
 """Full-size capture subject on the toy body (counterpart of
 avatarcap_tpu/tools/bench_workloads.py:22-106 and :286-424:
-``toy_avatar_statics``, ``build_capture_grid``, the networks and the
-frame's camera inputs).
+``toy_avatar_statics``, ``build_capture_grid``, the networks, the capture
+options and the frame's camera inputs).
 
 The capture workload of the repo: a 384 x 384 x 128 canonical grid
 (~18.9 M nodes) over the toy body densified to 6,752 vertices (real SMPL
@@ -12,6 +12,7 @@ bench's capture camera.
 
 from __future__ import annotations
 
+import copy
 from typing import Tuple
 
 import numpy as np
@@ -27,6 +28,26 @@ from avatarcap_tpu_torch.ops.knn import knn
 from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
 from avatarcap_tpu_torch.pipeline.capture import CaptureGrid
 from avatarcap_tpu_torch.utils.toy_body import make_toy_smpl_params
+
+
+# The capture options of the JAX package's capture workload
+# (avatarcap_tpu/tools/bench_workloads.py:368-395): static capacities sized
+# to the fitted bench body, and the texture path's unique-vertex
+# capacities, direct ReconNet colors and 32k-ray chunks.
+CAPTURE_OPTIONS = dict(
+    max_tris=(1 << 19) + (1 << 16),            # 589,824
+    max_active=(1 << 18) + (1 << 15),          # 294,912
+    refine_capacity=(1 << 20) + (1 << 19) + (1 << 18) + (1 << 17),
+    recon_max_tris=(1 << 18) + (1 << 15),      # 294,912
+    recon_max_active=(1 << 17) + (1 << 14),    # 147,456
+    recon_refine_capacity=1 << 18,             # 262,144
+    raster_max_candidates=1 << 16,
+    skin_row_group=3, render_res=512, hierarchical_query=True,
+    fusion_iters=100, integrate_manner="merge",
+    normal_mode="trilinear", use_fused_query=True,
+    nerf_unique_capacity=(1 << 18) + (1 << 15),  # 294,912
+    recon_unique_capacity=1 << 17,             # 131,072
+    recon_color_mode="direct", nerf_chunk=1 << 15)
 
 
 def toy_avatar_statics(dense: bool = True, device="cpu"):
@@ -82,6 +103,21 @@ def random_avatar(generator: torch.Generator) -> GeoTexAvatar:
         model.cano_template.geo_mlp.fc_list[1].weight.uniform_(
             -0.1, 0.1, generator=generator)
     return model.eval()
+
+
+def random_tex_avatar(avatar: GeoTexAvatar,
+                      generator: torch.Generator) -> GeoTexAvatar:
+    """A texture avatar for the NeRF colors: a copy of ``avatar`` whose
+    density row of the geometry head is redrawn, U(-1, 1) weights and a
+    bias of 4, so the color rays carry O(0.1) colors rather than the
+    geometry head's faint density. The geometry (the occupancy row and
+    everything before the head) is the avatar's."""
+    tex = copy.deepcopy(avatar)
+    head = tex.cano_template.geo_mlp.fc_list[1]
+    with torch.no_grad():
+        head.weight[1].uniform_(-1.0, 1.0, generator=generator)
+        head.bias[1] = 4.0
+    return tex.eval()
 
 
 def random_recon(generator: torch.Generator) -> ReconNetwork:

@@ -7,12 +7,16 @@ Phases, each fatal on failure:
   1. build every CUDA kernel from csrc/ (one nvcc per source, all started
      together) and print each ptxas resource report;
   2. build the full-size capture subject: the toy body (6,752 vertices),
-     a 384 x 384 x 128 canonical grid, GeoTexAvatar and ReconNet at their
-     published widths with weights from fixed torch.Generators, the
-     capture options and the camera of the repo's capture workload;
+     a 384 x 384 x 128 canonical grid, GeoTexAvatar, a texture avatar
+     (its copy with a denser density head) and ReconNet at their published
+     widths with weights from fixed torch.Generators, the capture options
+     (texture path included) and the camera of the repo's capture
+     workload;
   3. hold kernel K1 (warp_template_query) against its plain PyTorch
      version on the inputs of the frame's coarse and refine launches, and
-     time kernel, plain version and bound;
+     time kernel, plain version and bound; then K1's two halves, K4
+     (template_query) and K5 (offset_query), on the coarse launch's
+     points and [points, pose features];
   4. one warm-up and one timed avatar-only capture frame,
      process_frame(item, w_recon=False, w_nerf=False), with the kernel
      launch counts set to 0 just before and read just after the timed
@@ -26,8 +30,18 @@ Phases, each fatal on failure:
      around each (2 K1 and 2 K2 launches), whose triangle counts are
      compared (run-to-run drift), two more with
      torch.backends.cudnn.deterministic = True, and the stage times;
-  6. the avatar-only and the production frame on a small subject on the
-     card and on the CPU (f32 path and kernels), which must agree.
+  6. the textured production frame, process_frame(item, w_recon=True,
+     w_nerf=True, ...): a warm-up frame, whose meshes give the inputs of
+     the two K3 (ray_color_query) launches (the avatar's unique vertices
+     and the ReconNet's, recorded through the same color stages the frame
+     runs); K3 held against its plain version on them and timed; then two
+     timed frames with the launch counts read around each (2 K1, 2 K2 and
+     2 K3 launches), the stage times, and one avatar-only textured frame
+     (2 K1, 1 K3);
+  7. the avatar-only, the production and the textured production frame on
+     a small subject on the card and on the CPU (f32 path and kernels),
+     which must agree; the textured frame's colors through the kernels on
+     the card also against the f32 path on the CPU.
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Writes the detailed
 record to chiprun_out/chip_smoke.json. Exits non-zero without a CUDA
@@ -56,21 +70,14 @@ PEAK_BYTES_PER_S = 3.35e12
 K1_TOL = {"occ": 2e-2, "alpha": 2e-2, "rgb": 2e-2, "offset": 2e-3}
 # K2 against its plain version: the same reason and the same 2e-2 at which
 # the JAX package holds its kernel (tests/test_recon_fused.py); the flips
-# stay rare, so the median difference must stay below 1e-4
+# stay rare, so the median difference must stay below 1e-4. K3 sums 64
+# such samples per ray: the same two bounds
 K2_TOL = 2e-2
 K2_MEDIAN_TOL = 1e-4
-
-CAPTURE_OPTIONS = dict(
-    max_tris=(1 << 19) + (1 << 16),            # 589,824
-    max_active=(1 << 18) + (1 << 15),          # 294,912
-    refine_capacity=(1 << 20) + (1 << 19) + (1 << 18) + (1 << 17),
-    recon_max_tris=(1 << 18) + (1 << 15),      # 294,912
-    recon_max_active=(1 << 17) + (1 << 14),    # 147,456
-    recon_refine_capacity=1 << 18,             # 262,144
-    raster_max_candidates=1 << 16,
-    skin_row_group=3, render_res=512, hierarchical_query=True,
-    fusion_iters=100, integrate_manner="merge",
-    normal_mode="trilinear", use_fused_query=True)
+K3_TOL = 2e-2
+K3_MEDIAN_TOL = 1e-4
+# a ray whose color exceeds this carries density somewhere along it
+K3_COLOR_FLOOR = 1e-3
 
 
 def _sync(device):
@@ -117,15 +124,16 @@ def _timed(fn, device, reps):
 
 
 def measure_launch(kernel, plain, n, macs_per_point, bytes_per_point,
-                   weight_bytes, device):
-    """Milliseconds of one launch (kernel() over 10 calls, plain() over 3)
-    beside its bound: the larger of its bf16 operations over the peak
-    rate and its bytes (each input read once, each output written once,
-    the packed weights once) over the memory rate."""
+                   weight_bytes, device, plain_reps=3):
+    """Milliseconds of one launch (kernel() over 10 calls, plain() over
+    plain_reps) beside its bound: the larger of its bf16 operations over
+    the peak rate and its bytes (each input read once, each output written
+    once, the packed weights once) over the memory rate. n counts the
+    launch's points (a ray kernel's samples, with bytes per sample)."""
     import torch
     with torch.inference_mode():
         ms = _timed(kernel, device, reps=10)
-        plain_ms = _timed(plain, device, reps=3)
+        plain_ms = _timed(plain, device, reps=plain_reps)
     flops = 2.0 * macs_per_point * n
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (n * bytes_per_point + weight_bytes) / PEAK_BYTES_PER_S * 1e3
@@ -133,6 +141,10 @@ def measure_launch(kernel, plain, n, macs_per_point, bytes_per_point,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def _weight_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def build_kernels():
@@ -159,16 +171,17 @@ def build_subject(device, vol_res=(384, 384, 128), dense=True, seed=0,
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureOptions)
     from avatarcap_tpu_torch.tools.bench_workloads import (
-        bench_camera, build_capture_grid, random_avatar, random_recon,
-        toy_avatar_statics)
+        CAPTURE_OPTIONS, bench_camera, build_capture_grid, random_avatar,
+        random_recon, random_tex_avatar, toy_avatar_statics)
     params, statics, v = toy_avatar_statics(dense=dense, device=device)
     grid, n_valid = build_capture_grid(statics, vol_res)
     gen = torch.Generator().manual_seed(seed)
     avatar = random_avatar(gen)
     recon = random_recon(torch.Generator().manual_seed(seed + 1))
+    tex = random_tex_avatar(avatar, torch.Generator().manual_seed(seed + 2))
     opts = CaptureOptions(**(options or CAPTURE_OPTIONS))
-    capture = AvatarCapture(avatar, statics, grid, recon=recon, options=opts,
-                            device=device)
+    capture = AvatarCapture(avatar, statics, grid, recon=recon,
+                            tex_avatar=tex, options=opts, device=device)
     pos_res = 256
     pos_map = torch.randn((pos_res, pos_res, 6), generator=gen) * 0.1
     w2c, camera, inferred = bench_camera(img_res)
@@ -236,8 +249,7 @@ def check_k1(capture, recorded, device):
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad} "
                              f"(tolerance {K1_TOL})")
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in pk["offset"] + pk["template"])
+    weight_bytes = _weight_bytes(pk["offset"] + pk["template"])
 
     def measure(pts, pf):
         # 3 f32 + 64 bf16 in, 8 f32 out per point
@@ -260,27 +272,84 @@ def check_k1(capture, recorded, device):
             "coarse_launch": coarse}
 
 
+def check_k4_k5(capture, pts, pf, device):
+    """K4 and K5 against their plain versions on the coarse K1 launch's
+    points and [points, pose features], at K1's tolerances; timed."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import (
+        OFFSET_IN_DIM, OFFSET_MACS_PER_POINT, TEMPLATE_MACS_PER_POINT,
+        offset_query, offset_query_plain, template_query,
+        template_query_plain)
+    pk = capture.packed_query
+    feats = torch.cat([pts, pf.float()], -1)
+    with torch.inference_mode():
+        got = template_query(pk["template"], pts)
+        ref = template_query_plain(pk["template"], pts)
+        off = offset_query(pk["offset"], feats)
+        off_ref = offset_query_plain(pk["offset"], feats)
+    _sync(device)
+    if not _finite(list(got) + [off]):
+        raise AssertionError("K4 or K5 output is not finite")
+    errs = {k: float((g - r).abs().max())
+            for k, g, r in zip(("rgb", "alpha", "occ"), got, ref)}
+    off_err = float((off - off_ref).abs().max())
+    bad = {k: e for k, e in errs.items() if e > K1_TOL[k]}
+    if bad or off_err > K1_TOL["offset"]:
+        raise AssertionError(f"K4/K5 disagree with their plain versions: "
+                             f"{bad}, offset {off_err} (tolerance {K1_TOL})")
+    del got, ref, off, off_ref
+    n = pts.shape[0]
+    k4 = measure_launch(
+        lambda: template_query(pk["template"], pts),
+        lambda: template_query_plain(pk["template"], pts), n,
+        TEMPLATE_MACS_PER_POINT, 3 * 4 + 5 * 4, _weight_bytes(pk["template"]),
+        device)
+    k5 = measure_launch(
+        lambda: offset_query(pk["offset"], feats),
+        lambda: offset_query_plain(pk["offset"], feats), n,
+        OFFSET_MACS_PER_POINT, OFFSET_IN_DIM * 4 + 3 * 4,
+        _weight_bytes(pk["offset"]), device)
+    return ({"name": "template_query", "route": "cuda",
+             "source": "avatarcap_tpu_torch/csrc/template_offset_query.cu",
+             "replaces": "avatarcap_tpu/ops/pallas_query.py:533",
+             "max_abs_err": max(errs.values()),
+             "max_abs_err_by_output": errs,
+             "tolerance": {k: K1_TOL[k] for k in errs}, **k4,
+             "library_ms": None},
+            {"name": "offset_query", "route": "cuda",
+             "source": "avatarcap_tpu_torch/csrc/template_offset_query.cu",
+             "replaces": "avatarcap_tpu/ops/pallas_query.py:172",
+             "max_abs_err": off_err, "tolerance": K1_TOL["offset"], **k5,
+             "library_ms": None})
+
+
 def _finite(tensors):
     import torch
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def run_frame(capture, item, device, **frame_kw):
+def _wrappers():
+    """The kernels' wrappers, K1 to K5, each counting its launches."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    return {"k1": fq.warp_template_query, "k2": fq.recon_decode,
+            "k3": fq.ray_color_query, "k4": fq.template_query,
+            "k5": fq.offset_query}
+
+
+def run_frame(capture, item, device, w_nerf=False, **frame_kw):
     """One counted and timed frame: the launch counts are set to 0 just
     before it and read just after. Returns (results, record)."""
     import torch
-    from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
-                                                     warp_template_query)
     _sync(device)
     torch.cuda.reset_peak_memory_stats(device)
-    warp_template_query.launches = 0
-    recon_decode.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    res = capture.process_frame(item, w_nerf=False, **frame_kw)
+    res = capture.process_frame(item, w_nerf=w_nerf, **frame_kw)
     _sync(device)
     secs = time.perf_counter() - t0
-    out = {"seconds": secs, "k1_launches": warp_template_query.launches,
-           "k2_launches": recon_decode.launches,
+    out = {"seconds": secs,
+           **{f"{k}_launches": fn.launches for k, fn in _wrappers().items()},
            "num_tris": int(res["cano_mesh"].num_tris),
            "overflow": bool(res["overflow"]),
            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
@@ -294,18 +363,27 @@ def run_frame(capture, item, device, **frame_kw):
         images += [res["front_merged_normal"], res["front_image_normal"]]
         if out["recon_num_tris"] <= 0:
             raise AssertionError("the frame's ReconNet mesh has no triangles")
+    colors = [res[k] for k in ("avatar_colors", "recon_colors") if k in res]
+    for key, mesh in (("avatar_colors", "cano_mesh"),
+                      ("recon_colors", "recon_mesh")):
+        if key in res:
+            valid = res[mesh].valid.repeat_interleave(3)
+            out[f"{key}_mean"] = res[key][valid].mean(0).tolist()
+            if res[key].shape != res[mesh].vertices.shape:
+                raise AssertionError(f"{key} has shape "
+                                     f"{tuple(res[key].shape)}")
     if not _finite([t for m in meshes for t in (m.vertices, m.normals)]
-                   + images):
+                   + images + colors):
         raise AssertionError("frame outputs are not finite")
     if out["num_tris"] <= 0:
         raise AssertionError("frame produced no triangles")
     return res, out
 
 
-def stage_times(capture, item, device, **frame_kw):
+def stage_times(capture, item, device, w_nerf=False, **frame_kw):
     """Synchronised seconds of each stage of one frame."""
     clock = StageClock(device)
-    capture.process_frame(item, w_nerf=False, timer=clock, **frame_kw)
+    capture.process_frame(item, w_nerf=w_nerf, timer=clock, **frame_kw)
     return clock.seconds
 
 
@@ -351,7 +429,7 @@ def check_k2(capture, recorded, device):
         raise AssertionError(
             f"K2 disagrees with its plain version: max {err}, median "
             f"{median} (tolerance {K2_TOL}, median {K2_MEDIAN_TOL})")
-    weight_bytes = sum(t.numel() * t.element_size() for t in pk)
+    weight_bytes = _weight_bytes(pk)
 
     def measure(feats):
         # 33 f32 in, 1 f32 out per point
@@ -410,30 +488,180 @@ def timed_production_frames(capture, item, recon_kw, device):
     return out
 
 
-def check_small_frame(device):
-    """The avatar-only and the production frame on a small subject, on the
-    card and on the CPU, through the f32 module path (use_fused_query=
-    False) and through the kernels (their plain versions on the CPU)."""
+def k3_launch_inputs(capture, item, res):
+    """The arguments of the textured frame's two K3 launches (the avatar's
+    unique vertices, the ReconNet's), recorded through the same color
+    stages the frame runs, on that frame's meshes (this pass launches the
+    kernel; it is not the counted frame)."""
     import torch
+    from avatarcap_tpu_torch.ops.fused_query import ray_color_query
+    from avatarcap_tpu_torch.pipeline.avatar import compute_pose_features
+    recorded = []
+
+    def ray_query(*args, **kw):
+        recorded.append((args, kw))
+        return ray_color_query(*args, **kw)
+
+    with torch.inference_mode():
+        pos_map = torch.as_tensor(item["smpl_pos_map"],
+                                  device=capture.device)[None]
+        feat = compute_pose_features(capture.avatar, pos_map)
+        colors, _, uniq = capture.nerf_color_stage(
+            feat, res["cano_mesh"], ray_query=ray_query)
+        capture.color_transfer_stage(
+            feat, res["recon_mesh"], res["cano_mesh"].vertices,
+            colors.flip(-1), uniq, ray_query=ray_query)
+    return recorded
+
+
+def check_k3(recorded, device):
+    """K3 against its plain version on both launches' arguments; times
+    kernel, plain and bound."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import (
+        MACS_PER_POINT, POSE_FEAT_DIM, ray_color_query, ray_color_query_plain)
+    err, median, launches = 0.0, 0.0, []
+    for args, kw in recorded:
+        with torch.inference_mode():
+            got = ray_color_query(*args, **kw)
+            ref = ray_color_query_plain(*args, **kw)
+        _sync(device)
+        if not _finite([got]):
+            raise AssertionError("K3 output is not finite")
+        d = (got - ref).abs()
+        err = max(err, float(d.max()))
+        median = max(median, float(d.median()))
+        share = float((ref.max(-1).values > K3_COLOR_FLOOR).float().mean())
+        launches.append({"rays": got.shape[0], "samples": kw["n_samples"],
+                         "anchors": args[6].shape[1],
+                         "share_colored": share})
+        print(f"[k3] {got.shape[0]} rays: share of rays with a color above "
+              f"{K3_COLOR_FLOOR}: {share:.4f}")
+        if share == 0.0:
+            raise AssertionError("K3's rays carry no color: a degenerate "
+                                 "field proves nothing")
+        del got, ref, d
+    if err > K3_TOL or median > K3_MEDIAN_TOL:
+        raise AssertionError(
+            f"K3 disagrees with its plain version: max {err}, median "
+            f"{median} (tolerance {K3_TOL}, median {K3_MEDIAN_TOL})")
+    for (args, kw), rec in zip(recorded, launches):
+        n_anchors = rec["anchors"]
+        per_ray = (3 + 3 + n_anchors + 3) * 4 + 2 * POSE_FEAT_DIM * 2
+        rec.update(measure_launch(
+            lambda: ray_color_query(*args, **kw),
+            lambda: ray_color_query_plain(*args, **kw),
+            rec["rays"] * rec["samples"], MACS_PER_POINT,
+            per_ray / rec["samples"], _weight_bytes(args[0] + args[1]),
+            device, plain_reps=1))
+    # the kernel table reports the avatar launch, the larger of the two
+    return {"name": "ray_color_query", "route": "cuda",
+            "source": "avatarcap_tpu_torch/csrc/ray_color_query.cu",
+            "replaces": "avatarcap_tpu/ops/pallas_query.py:496",
+            "max_abs_err": err, "median_abs_err": median,
+            "tolerance": {"max": K3_TOL, "median": K3_MEDIAN_TOL},
+            **launches[0], "library_ms": None,
+            "recon_launch": launches[-1]}
+
+
+def textured_frames(capture, item, recon_kw, device):
+    """Phase 6: the warm-up textured frame, K3's inputs and check, two
+    timed textured production frames, their stage times and one
+    avatar-only textured frame. Returns (K3 record, frame record)."""
+    res, _ = run_frame(capture, item, device, w_nerf=True, w_recon=True,
+                       **recon_kw)
+    recorded = k3_launch_inputs(capture, item, res)
+    del res
+    k3 = check_k3(recorded, device)
+    del recorded
+    print(f"[k3] {json.dumps(k3)}")
+    frames = []
+    for _ in range(2):
+        _, rec = run_frame(capture, item, device, w_nerf=True, w_recon=True,
+                           **recon_kw)
+        if (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"]) != (
+                2, 2, 2):
+            raise AssertionError(
+                f"the textured production frame launched K1, K2, K3 "
+                f"{rec['k1_launches']}, {rec['k2_launches']}, "
+                f"{rec['k3_launches']} times, expected 2, 2, 2")
+        frames.append(rec)
+    out = dict(frames[0])
+    out["runs"] = frames
+    out["stages"] = stage_times(capture, item, device, w_nerf=True,
+                                w_recon=True, **recon_kw)
+    _, avatar_only = run_frame(capture, item, device, w_nerf=True,
+                               w_recon=False)
+    if (avatar_only["k1_launches"], avatar_only["k2_launches"],
+            avatar_only["k3_launches"]) != (2, 0, 1):
+        raise AssertionError(
+            f"the avatar-only textured frame launched K1, K2, K3 "
+            f"{avatar_only['k1_launches']}, {avatar_only['k2_launches']}, "
+            f"{avatar_only['k3_launches']} times, expected 2, 0, 1")
+    out["avatar_only"] = avatar_only
+    return k3, out
+
+
+def _color_agreement(a, b, mesh_key, color_key, tol):
+    """Colors of two textured frames compared vertex by vertex, the
+    vertices matched by their volume-edge keys (kernel noise may move a
+    few triangles, which shifts the soup slots after them). Returns
+    (share of b's vertices found in a, share of found ones within tol)."""
+    import numpy as np
+
+    def per_vertex(res):
+        mesh = res[mesh_key]
+        ids = mesh.edge_ids.cpu().numpy()
+        valid = mesh.valid.repeat_interleave(3).cpu().numpy() & (ids >= 0)
+        uid, first = np.unique(ids[valid], return_index=True)
+        return uid, res[color_key].cpu().numpy()[valid][first]
+
+    ua, ca = per_vertex(a)
+    ub, cb = per_vertex(b)
+    _, ia, ib = np.intersect1d(ua, ub, return_indices=True)
+    close = np.abs(ca[ia] - cb[ib]).max(-1) <= tol
+    return len(ia) / max(1, len(ub)), float(close.mean()) if len(ia) else 0.0
+
+
+def check_small_frame(device):
+    """The avatar-only, the production and the textured production frame
+    on a small subject, on the card and on the CPU, through the f32 module
+    path (use_fused_query=False) and through the kernels (their plain
+    versions on the CPU). The textured frames' colors are matched vertex
+    by vertex through the soups' edge keys. The textured frame takes 4
+    samples per ray, so that the kernels' 4 anchored near flags and lerped
+    pose features are the f32 path's per-sample KNN and fetch: the card's
+    color stages through the kernels, run on the CPU f32 frame's meshes,
+    are also held against that frame's colors."""
+    import torch
+    from avatarcap_tpu_torch.pipeline.capture import CaptureMesh
+    from avatarcap_tpu_torch.tools.bench_workloads import CAPTURE_OPTIONS
     small = dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
                  refine_capacity=1 << 16, recon_max_tris=0,
                  recon_max_active=0, recon_refine_capacity=0,
                  raster_max_candidates=0, render_res=128, skin_row_group=1,
-                 fusion_iters=10)
-    report = {}
+                 fusion_iters=10, nerf_unique_capacity=1 << 14,
+                 recon_unique_capacity=1 << 14, n_samples=4)
+    from avatarcap_tpu_torch.pipeline.avatar import compute_pose_features
+    cpu = torch.device("cpu")
+    outs = {}
     for fused in (False, True):
-        opts = dict(small, use_fused_query=fused)
-        outs = {}
-        for dev in (device, torch.device("cpu")):
+        for dev in (device, cpu):
             cap, item, recon_kw, _ = build_subject(
-                dev, vol_res=(48, 48, 32), dense=False, seed=1, options=opts,
-                img_res=128)
-            outs[dev.type] = (
+                dev, vol_res=(48, 48, 32), dense=False, seed=1,
+                options=dict(small, use_fused_query=fused), img_res=128)
+            if fused and dev == device:
+                card_cap = cap
+            outs[fused, dev.type] = (
                 cap.process_frame(item, w_recon=False, w_nerf=False),
                 cap.process_frame(item, w_recon=True, w_nerf=False,
+                                  **recon_kw),
+                cap.process_frame(item, w_recon=True, w_nerf=True,
                                   **recon_kw))
+    report = {}
+    for fused in (False, True):
         for w_recon in (False, True):
-            a, b = outs[device.type][w_recon], outs["cpu"][w_recon]
+            a, b = outs[fused, device.type][w_recon], outs[fused, "cpu"][w_recon]
             key = ("fused" if fused else "f32") + ("_w_recon" if w_recon
                                                    else "")
             pairs = [("num_tris", a["cano_mesh"], b["cano_mesh"])]
@@ -460,6 +688,44 @@ def check_small_frame(device):
             if not ok:
                 raise AssertionError(f"small frame ({key}) differs between "
                                      f"the card and the CPU: {rec}")
+    for key, fused in (("f32_w_nerf", False), ("fused_w_nerf", True)):
+        a, b = outs[fused, device.type][2], outs[fused, "cpu"][2]
+        rec = {}
+        ok = True
+        for mesh_key, color_key in (("cano_mesh", "avatar_colors"),
+                                    ("recon_mesh", "recon_colors")):
+            found, agree = _color_agreement(a, b, mesh_key, color_key,
+                                            K3_TOL)
+            rec[color_key] = {"vertices_found": found, "agreeing": agree}
+            ok &= found >= 0.95 and agree >= 0.99
+        report[key] = rec
+        if not ok:
+            raise AssertionError(f"small textured frame ({key}) colors "
+                                 f"differ between the card and the CPU: "
+                                 f"{rec}")
+    ref = outs[False, "cpu"][2]
+    with torch.inference_mode():
+        pos_map = torch.as_tensor(item["smpl_pos_map"], device=device)[None]
+        feat = compute_pose_features(card_cap.avatar, pos_map)
+        cm, rm = (CaptureMesh(*(None if t is None else t.to(device)
+                                for t in ref[k]))
+                  for k in ("cano_mesh", "recon_mesh"))
+        colors, _, uniq = card_cap.nerf_color_stage(feat, cm)
+        colors = colors.flip(-1)
+        recon_colors, _ = card_cap.color_transfer_stage(
+            feat, rm, cm.vertices, colors, uniq)
+    rec = {}
+    for name, got, mesh in (("avatar_colors", colors, cm),
+                            ("recon_colors", recon_colors, rm)):
+        valid = mesh.valid.repeat_interleave(3).cpu()
+        d = (got.cpu()[valid] - ref[name][valid]).abs().max(-1).values
+        rec[name] = {"agreeing": float((d <= K3_TOL).float().mean()),
+                     "max_abs_err": float(d.max())}
+        if rec[name]["agreeing"] < 0.99:
+            raise AssertionError(
+                f"the card's color stages through the kernels differ from "
+                f"the CPU f32 frame's colors on its meshes: {rec}")
+    report["fused_card_vs_f32_cpu_w_nerf"] = rec
     return report
 
 
@@ -498,15 +764,20 @@ def main() -> int:
     recorded, n_refined = k1_launch_inputs(capture, item)
     k1 = check_k1(capture, recorded, device)
     k1["refined_nodes"] = n_refined
-    del recorded
     print(f"[k1] {json.dumps(k1)}")
+    k4, k5 = check_k4_k5(capture, *recorded[0], device)
+    del recorded
+    print(f"[k4] {json.dumps(k4)}")
+    print(f"[k5] {json.dumps(k5)}")
 
     run_frame(capture, item, device, w_recon=False)           # warm-up
     _, frame = run_frame(capture, item, device, w_recon=False)
-    if frame["k1_launches"] != 2 or frame["k2_launches"] != 0:
+    if (frame["k1_launches"], frame["k2_launches"],
+            frame["k3_launches"]) != (2, 0, 0):
         raise AssertionError(
-            f"the avatar-only frame launched K1 {frame['k1_launches']} and "
-            f"K2 {frame['k2_launches']} times, expected 2 and 0")
+            f"the avatar-only frame launched K1, K2, K3 "
+            f"{frame['k1_launches']}, {frame['k2_launches']}, "
+            f"{frame['k3_launches']} times, expected 2, 0, 0")
     frame["stages"] = stage_times(capture, item, device, w_recon=False)
     record["frame"] = frame
     print(f"[frame] {json.dumps(frame)}")
@@ -514,11 +785,17 @@ def main() -> int:
     k2 = production_frames(capture, item, recon_kw, device)
     print(f"[k2] {json.dumps(k2)}")
     frame_r = timed_production_frames(capture, item, recon_kw, device)
-    k1["launches"] = frame_r["k1_launches"]
-    k2["launches"] = frame_r["k2_launches"]
     record["frame_w_recon"] = frame_r
     print(f"[frame_w_recon] {json.dumps(frame_r)}")
+
+    k3, frame_n = textured_frames(capture, item, recon_kw, device)
+    record["frame_w_nerf"] = frame_n
+    print(f"[frame_w_nerf] {json.dumps(frame_n)}")
     del capture
+    kerns = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5}
+    for name, kern in kerns.items():
+        # launches of the textured production frame, the slice's main path
+        kern["launches"] = frame_n[f"{name}_launches"]
 
     record["small_frame"] = check_small_frame(device)
     print(f"[small] {json.dumps(record['small_frame'])}")
@@ -527,13 +804,12 @@ def main() -> int:
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels_line = {"kernels": [{k: kern[k] for k in keys}
-                                for kern in (k1, k2)]}
+                                for kern in kerns.values()]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    record["k1"] = k1
-    record["k2"] = k2
+    record.update(kerns)
     record["gpu"] = smi
     record["seconds"] = time.perf_counter() - t_all
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

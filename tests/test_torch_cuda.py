@@ -4,10 +4,13 @@ so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-K1's and K2's tolerances against their plain versions are those of the
-CPU tests against the Pallas kernels (tests/test_torch_fused_query.py,
-tests/test_torch_recon.py): both versions sum bf16 products in f32 in
-different orders, so a bf16 rounding of an activation can flip.
+K1's, K2's, K4's and K5's tolerances against their plain versions are
+those of the CPU tests against the Pallas kernels
+(tests/test_torch_fused_query.py, tests/test_torch_recon.py,
+tests/test_torch_nerf.py): both versions sum bf16 products in f32 in
+different orders, so a bf16 rounding of an activation can flip. K3 sums
+S such samples per ray: 2e-2 at most, and the median within 1e-4 (the
+flips stay rare), as chip_smoke.py holds it.
 """
 
 import pytest
@@ -150,3 +153,88 @@ def test_avatar_frame_on_card(card):
         tris[dev.type] = int(res["cano_mesh"].num_tris)
     assert tris["cuda"] > 0
     assert abs(tris["cuda"] - tris["cpu"]) <= 0.01 * tris["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_k4_k5_kernels_match_plain(card, packed, n):
+    """K1's two halves on ragged point counts."""
+    from avatarcap_tpu_torch.ops.fused_query import (
+        offset_query, offset_query_plain, template_query,
+        template_query_plain)
+    pts, pf = _inputs(n, card, seed=n)
+    feats = torch.cat([pts, pf], -1)
+    before = (template_query.launches, offset_query.launches)
+    got = template_query(packed["template"], pts)
+    off = offset_query(packed["offset"], feats)
+    torch.cuda.synchronize()
+    assert (template_query.launches, offset_query.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = template_query_plain(packed["template"], pts)
+    for g, r, k in zip(got, ref, ("rgb", "alpha", "occ")):
+        assert g.shape == r.shape and g.device.type == "cuda"
+        torch.testing.assert_close(g, r, atol=ATOL[k], rtol=0)
+    torch.testing.assert_close(off, offset_query_plain(packed["offset"], feats),
+                               atol=ATOL["offset"], rtol=0)
+
+
+def _rays(n, n_anchors, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.rand((n, 3), generator=gen) * 1.2 - 0.6
+    nrm = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
+                                        dim=-1)
+    pf = torch.randn((2, n, 64), generator=gen).to(torch.bfloat16)
+    danch = torch.rand((n, n_anchors), generator=gen) * 0.16
+    bounds = torch.tensor([[-0.7, -0.7, -0.7], [0.7, 0.7, 0.7]])
+    return [t.to(device) for t in (base + nrm, -nrm, pf[0], pf[1], danch,
+                                   bounds)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_samples,n_anchors",
+                         [(1, 2, 2), (300, 5, 3), (2000, 64, 4)])
+def test_k3_kernel_matches_plain(card, packed, n, n_samples, n_anchors):
+    """Ragged ray counts, and sample counts that do not divide the tile."""
+    from avatarcap_tpu_torch.ops.fused_query import (ray_color_query,
+                                                     ray_color_query_plain)
+    args = _rays(n, n_anchors, card, seed=n)
+    kw = dict(n_samples=n_samples, near=0.98, far=1.05, threshold=0.08)
+    before = ray_color_query.launches
+    got = ray_color_query(packed["offset"], packed["template"], *args, **kw)
+    torch.cuda.synchronize()
+    assert ray_color_query.launches == before + 1
+    ref = ray_color_query_plain(packed["offset"], packed["template"], *args,
+                                **kw)
+    assert got.shape == (n, 3) and got.device.type == "cuda"
+    d = (got - ref).abs()
+    assert float(d.max()) <= 2e-2 and float(d.median()) <= 1e-4
+    assert bool((ref > 1e-3).any()) or n == 1
+
+
+@pytest.mark.cuda
+def test_k3_k4_k5_empty_and_invalid_inputs(card, packed):
+    from avatarcap_tpu_torch.ops.fused_query import (
+        offset_query, ray_color_query, template_query)
+    kw = dict(n_samples=4, near=0.98, far=1.05, threshold=0.08)
+    before = (ray_color_query.launches, template_query.launches,
+              offset_query.launches)
+    assert ray_color_query(packed["offset"], packed["template"],
+                           *_rays(0, 4, card, 0), **kw).shape == (0, 3)
+    assert template_query(packed["template"],
+                          torch.zeros((0, 3), device=card))[0].shape == (0, 3)
+    assert offset_query(packed["offset"],
+                        torch.zeros((0, 67), device=card)).shape == (0, 3)
+    assert (ray_color_query.launches, template_query.launches,
+            offset_query.launches) == before
+    rays = _rays(10, 4, card, 0)
+    with pytest.raises(ValueError):
+        ray_color_query(packed["offset"], packed["template"], *rays,
+                        **dict(kw, n_samples=1))
+    with pytest.raises(ValueError):
+        ray_color_query(packed["offset"], packed["template"], *rays[:4],
+                        torch.zeros((10, 17), device=card), rays[5], **kw)
+    with pytest.raises(ValueError):
+        template_query(tuple(t.float() for t in packed["template"]),
+                       rays[0])
+    with pytest.raises(ValueError):
+        offset_query(packed["offset"], torch.zeros((10, 66), device=card))
