@@ -27,3 +27,8 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* in
   a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * STRIDE + 8);
 }
+
+// The address of a shared-memory object in the shared state space.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}

@@ -25,18 +25,26 @@
 // What bounds it on an H100: operations. Each sample costs K1's ~1.97 MFLOP
 // while a ray reads 6 f32 + 128 bf16 + A f32 and writes 3 f32 for all its S
 // samples. So the design is K1's, with the sample loop inside the block:
-//   - a block owns 128 rays for all S samples; its per-ray state (origin,
-//     direction, anchor distances, transmittance T and the color sum) stays
-//     in shared memory beside K1's two activation panels, and each step
-//     rebuilds the decoder input panel from it: the 128 sample points in
-//     f32 and the lerped pose features (pf0 and pf1 are read from device
-//     memory, through L1/L2, at each step: 32 KB a step against the ~2 MB of
-//     weights every step streams);
-//   - the 20-layer chain is warp_template_core.cuh's, unchanged;
-//   - the fold into T and the color sum runs one thread per ray, in the
-//     sample order of the TPU kernel's loop (no cumprod);
+//   - a block owns 128 rays for all S samples, 16 per consumer warp; its
+//     per-ray state (origin, direction, anchor distances, transmittance T
+//     and the color sum) stays in shared memory beside K1's two input
+//     panels, and each step rebuilds the decoder input panel from it: the
+//     sample points in f32 and the lerped pose features (pf0 and pf1 are
+//     read from device memory, through L1/L2, at each step: 32 KB a step
+//     against the ~2 MB of weights every step streams);
+//   - the 20-layer chain is warp_template_core.cuh's (wgmma, hidden
+//     activations in registers): the producer thread walks the weight image
+//     once per sample, S times in all, through the ring in shared memory,
+//     and runs ahead of the consumers across the sample boundary (the next
+//     sample's first chunks land while this one is folded);
+//   - the fold into T and the color sum runs one thread per ray (16 lanes
+//     of the warp that owns it), in the sample order of the TPU kernel's
+//     loop (no cumprod); a warp builds, queries and folds only its own rays,
+//     so the two warpgroups never wait for each other, and the second one
+//     starts 13 chunks after the first (first_products' skew), which puts
+//     one's input build, epilogues and fold beside the other's products for
+//     all S samples;
 //   - ragged tail rays read zeros and are never stored.
-// A simple first version: no wgmma, TMA or warp specialisation yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,16 +56,15 @@ namespace {
 
 constexpr int kMaxAnchors = 16;
 // per ray: pts, offset (3 + 3), geo (2), color logits (3), ro, rd (3 + 3),
-// T (1), color sum (3), anchor distances (kMaxAnchors)
-constexpr size_t kRayFloats = 3 + 3 + 2 + 3 + 3 + 3 + 1 + 3 + kMaxAnchors;
-constexpr size_t kSmemBytes = 2 * kPanelBytes + sizeof(float) * kTile * kRayFloats;
+// T (1), color sum (3), anchor distances (A of the launch, <= kMaxAnchors)
+constexpr size_t kRayFloats = 3 + 3 + 2 + 3 + 3 + 3 + 1 + 3;
 
-static_assert(kSmemBytes <= 232448, "shared memory per block exceeded");
+constexpr size_t smem_bytes(int n_anchors) {
+  return kXPanelBytes + kPePanelBytes + kRingBytes +
+         sizeof(float) * kTile * (kRayFloats + n_anchors);
+}
 
-struct Weights {
-  OffsetWeights off;
-  TemplateWeights tpl;
-};
+static_assert(smem_bytes(kMaxAnchors) <= 232448, "shared memory per block exceeded");
 
 struct RayConsts {
   int n_rays, n_samples, n_anchors;
@@ -69,17 +76,18 @@ struct RayConsts {
   float threshold;    // f32 near-body distance
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 ray_color_query_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                        const __nv_bfloat16* __restrict__ pf0,
                        const __nv_bfloat16* __restrict__ pf1,
                        const float* __restrict__ danch,
                        const float* __restrict__ bounds, RayConsts k,
-                       Weights wt, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* pb = pa + kTile * kStride;
-  float* s_pts = reinterpret_cast<float*>(pb + kTile * kStride);  // [T][3]
+                       ChainWeights wt, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(smem + kXPanelBytes);
+  unsigned char* ring_mem = smem + kXPanelBytes + kPePanelBytes;
+  float* s_pts = reinterpret_cast<float*>(ring_mem + kRingBytes);  // [T][3]
   float* s_off = s_pts + kTile * 3;                                // [T][3]
   float* s_geo = s_off + kTile * 3;                                // [T][2]
   float* s_clr = s_geo + kTile * 2;                                // [T][3]
@@ -91,18 +99,37 @@ ray_color_query_kernel(const float* __restrict__ ro, const float* __restrict__ r
   const int base = blockIdx.x * kTile;
   const int n = k.n_rays, A = k.n_anchors;
 
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-    const int r = i / 3;
-    const size_t g = static_cast<size_t>(base) * 3 + i;
-    s_ro[i] = base + r < n ? ro[g] : 0.f;
-    s_rd[i] = base + r < n ? rd[g] : 0.f;
-    s_acc[i] = 0.f;
+  Ring ring = ring_init(ring_mem, threadIdx.x >= kThreads);
+  if (threadIdx.x >= kThreads) {               // the producer warpgroup
+    become_producer();
+    if (threadIdx.x == kThreads) {
+#pragma unroll 1
+      for (int s = 0; s < k.n_samples; ++s) {
+        produce_offset(ring, wt.off);
+        produce_template(ring, wt.tpl);
+      }
+    }
+    return;
   }
-  for (int i = threadIdx.x; i < kTile * A; i += kThreads) {
-    const int r = i / A;
-    s_anch[i] = base + r < n ? danch[static_cast<size_t>(base) * A + i] : 0.f;
+  become_consumer();
+  Products products = first_products(ring, true);
+  // each warp loads, builds, folds and stores its own 16 rays of the tile
+  const int wm = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * 16;
+
+  for (int i = lane; i < 16 * 3; i += 32) {
+    const int r = row0 + i / 3, j = r * 3 + i % 3;
+    const size_t g = static_cast<size_t>(base) * 3 + j;
+    s_ro[j] = base + r < n ? ro[g] : 0.f;
+    s_rd[j] = base + r < n ? rd[g] : 0.f;
+    s_acc[j] = 0.f;
   }
-  for (int r = threadIdx.x; r < kTile; r += kThreads) s_trans[r] = 1.f;
+  for (int i = lane; i < 16 * A; i += 32) {
+    const int r = row0 + i / A, j = row0 * A + i;
+    s_anch[j] = base + r < n ? danch[static_cast<size_t>(base) * A + j] : 0.f;
+  }
+  if (lane < 16) s_trans[row0 + lane] = 1.f;
+  __syncwarp();
 
 #pragma unroll 1
   for (int s = 0; s < k.n_samples; ++s) {
@@ -111,42 +138,46 @@ ray_color_query_kernel(const float* __restrict__ ro, const float* __restrict__ r
     const float w1 = __fdiv_rn(sf, k.samples_m1);
     const float w0 = __fsub_rn(1.f, w1);
 
-    // decoder input x = [bf16(pts), bf16(lerped pf)] in pa[:, 0:67]
-    for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-      const int r = i / 3;
-      const float v = __fadd_rn(s_ro[i], __fmul_rn(s_rd[i], z));
-      s_pts[i] = v;
-      pa[r * kStride + (i - 3 * r)] = __float2bfloat16_rn(v);
+    // decoder input x = [bf16(pts), bf16(lerped pf)] in xs[:, 0:67]
+    for (int i = lane; i < 16 * 3; i += 32) {
+      const int r = row0 + i / 3, c = i % 3;
+      const float v = __fadd_rn(s_ro[r * 3 + c], __fmul_rn(s_rd[r * 3 + c], z));
+      s_pts[r * 3 + c] = v;
+      xs[panel_off(r, c)] = __float2bfloat16_rn(v);
     }
-    for (int i = threadIdx.x; i < kTile * 32; i += kThreads) {
-      const int r = i >> 5, c = 2 * (i & 31);
+    for (int i = lane; i < 16 * 32; i += 32) {
+      const int r = row0 + (i >> 5), c = 2 * (i & 31);
       float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
       if (base + r < n) {
         const size_t g = static_cast<size_t>(base + r) * 64 + c;
         a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pf0 + g));
         b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(pf1 + g));
       }
-      __nv_bfloat16* dst = pa + r * kStride + 3 + c;
-      dst[0] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(a.x, w0), __fmul_rn(b.x, w1)));
-      dst[1] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(a.y, w0), __fmul_rn(b.y, w1)));
+      xs[panel_off(r, 3 + c)] =
+          __float2bfloat16_rn(__fadd_rn(__fmul_rn(a.x, w0), __fmul_rn(b.x, w1)));
+      xs[panel_off(r, 4 + c)] =
+          __float2bfloat16_rn(__fadd_rn(__fmul_rn(a.y, w0), __fmul_rn(b.y, w1)));
     }
-    zero_input_pad(pa);
-    __syncthreads();
+    zero_input_pad(xs);
+    fence_panel_writes();
+    group_sync(wm);
 
-    offset_decoder(pa, pb, wt.off, s_off);
+    offset_decoder(xs, wm, products, wt.off, s_off);
 
-    // warp in f32, PE(10) of the warped points into pa[:, 256:320]
-    for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-      const int r = i / 3, c = i - 3 * r;
-      pe_coord(pa + r * kStride + 256, c, __fadd_rn(s_pts[i], s_off[i]));
+    // warp in f32, PE(10) of the warped points into pe[:, 0:64]
+    for (int i = lane; i < 16 * 3; i += 32) {
+      const int r = row0 + i / 3, c = i % 3;
+      pe_coord(pe, r, c, __fadd_rn(s_pts[r * 3 + c], s_off[r * 3 + c]));
     }
-    zero_pe_pad(pa);
-    __syncthreads();
+    zero_pe_pad(pe);
+    fence_panel_writes();
+    group_sync(wm);
 
-    template_mlp(pa, pb, wt.tpl, s_geo, s_clr);
+    template_mlp(pe, wm, products, wt.tpl, s_geo, s_clr);
 
     // fold the sample into the ray's transmittance and color sum
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    if (lane < 16) {
+      const int r = row0 + lane;
       const float pos = __fmul_rn(sf, k.anchor_step);
       const float seg = fminf(floorf(pos), k.anchors_m2);
       const float f = __fsub_rn(pos, seg);
@@ -170,11 +201,12 @@ ray_color_query_kernel(const float* __restrict__ ro, const float* __restrict__ r
       }
       s_trans[r] = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, alpha), 1e-10f));
     }
-    __syncthreads();
+    __syncwarp();
   }
 
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-    if (base + i / 3 < n) out[static_cast<size_t>(base) * 3 + i] = s_acc[i];
+  for (int i = lane; i < 16 * 3; i += 32) {
+    const int r = row0 + i / 3, j = r * 3 + i % 3;
+    if (base + r < n) out[static_cast<size_t>(base) * 3 + j] = s_acc[j];
   }
 }
 
@@ -183,7 +215,7 @@ ray_color_query_kernel(const float* __restrict__ ro, const float* __restrict__ r
 // C interface (loaded with ctypes). ro, rd (R, 3) f32; pf0, pf1 (R, 64)
 // bf16; danch (R, A) f32; bounds (2, 3) f32 (min, max); out (R, 3) f32, all
 // contiguous on the device. near, gap, anchor_step and threshold are the f32
-// constants of the header; weight_ptrs holds K1's 40 device pointers.
+// constants of the header; image and bias are K1's joint weight image.
 // Launches on `stream` and returns the cudaError_t of the launch (0 =
 // success; cudaErrorInvalidValue for S < 2 or A outside [2, 16]).
 extern "C" int rcq_launch(const float* ro, const float* rd, const void* pf0,
@@ -191,26 +223,25 @@ extern "C" int rcq_launch(const float* ro, const float* rd, const void* pf0,
                           const float* bounds, int n_rays, int n_samples,
                           int n_anchors, float near, float gap,
                           float anchor_step, float threshold,
-                          const void* const* weight_ptrs, float* out,
+                          const void* image, const void* bias, float* out,
                           void* stream) {
   if (n_rays <= 0) return 0;
   if (n_samples < 2 || n_anchors < 2 || n_anchors > kMaxAnchors) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Weights wt{offset_weights(weight_ptrs),
-                   template_weights(weight_ptrs + 2 * kOffsetLayers)};
   const RayConsts k{n_rays, n_samples, n_anchors, near, gap,
                     static_cast<float>(n_samples - 1), anchor_step,
                     static_cast<float>(n_anchors - 2), threshold};
   cudaError_t err = cudaFuncSetAttribute(
       ray_color_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      static_cast<int>(smem_bytes(kMaxAnchors)));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n_rays + kTile - 1) / kTile;
-  ray_color_query_kernel<<<blocks, kThreads, kSmemBytes,
+  ray_color_query_kernel<<<blocks, kBlockThreads, smem_bytes(n_anchors),
                            static_cast<cudaStream_t>(stream)>>>(
       ro, rd, static_cast<const __nv_bfloat16*>(pf0),
-      static_cast<const __nv_bfloat16*>(pf1), danch, bounds, k, wt, out);
+      static_cast<const __nv_bfloat16*>(pf1), danch, bounds, k,
+      chain_weights(image, bias), out);
   return static_cast<int>(cudaGetLastError());
 }
 

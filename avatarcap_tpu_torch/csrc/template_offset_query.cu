@@ -12,11 +12,12 @@
 // What bounds them on an H100: operations (557,184 and 428,288 MACs per
 // point against 12 + 20 and 268 + 12 bytes of input and output). Both run
 // K1's design and device code (warp_template_core.cuh): a block owns a tile
-// of 128 points, keeps its activations in two bf16 panels in shared memory
-// for the whole chain, runs every product on mma.sync bf16 tensor cores with
-// f32 accumulators and streams the weight fragments from L2; the ragged tail
-// is masked in the kernel.
-// A simple first version: no wgmma, TMA or warp specialisation yet.
+// of 128 points, 64 per consumer warpgroup, which keeps its hidden
+// activations in registers for the whole chain and runs every product on
+// wgmma (bf16 operands, f32 accumulators, A from registers, B from shared
+// memory); a producer thread streams its half of the host-built weight
+// image through a ring in shared memory (bulk asynchronous copies,
+// mbarriers); the ragged tail is masked in the kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,102 +27,136 @@
 
 namespace {
 
-constexpr size_t kSmemBytes = 2 * kPanelBytes + sizeof(float) * kTile * (2 + 3);
+constexpr size_t kTemplateSmemBytes =
+    kPePanelBytes + kRingBytes + sizeof(float) * kTile * (2 + 3);
+constexpr size_t kOffsetSmemBytes = kXPanelBytes + kRingBytes + sizeof(float) * kTile * 3;
 constexpr int kOffsetIn = 67;
 
-static_assert(kSmemBytes <= 232448, "shared memory per block exceeded");
+static_assert(kTemplateSmemBytes <= 232448 && kOffsetSmemBytes <= 232448,
+              "shared memory per block exceeded");
 
-__global__ void __launch_bounds__(kThreads, 1)
-template_query_kernel(const float* __restrict__ pts, int n, TemplateWeights wt,
+__global__ void __launch_bounds__(kBlockThreads, 1)
+template_query_kernel(const float* __restrict__ pts, int n, HalfWeights wt,
                       float* __restrict__ rgb, float* __restrict__ alpha,
                       float* __restrict__ occ) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* pb = pa + kTile * kStride;
-  float* s_geo = reinterpret_cast<float*>(pb + kTile * kStride);  // [T][2]
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* pe = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring_mem = smem + kPePanelBytes;
+  float* s_geo = reinterpret_cast<float*>(ring_mem + kRingBytes);  // [T][2]
   float* s_clr = s_geo + kTile * 2;                                // [T][3]
   const int base = blockIdx.x * kTile;
 
-  // PE(10) of the f32 points into pa[:, 256:320]
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-    const int r = i / 3, c = i - 3 * r;
-    const float v = base + r < n ? pts[static_cast<size_t>(base) * 3 + i] : 0.f;
-    pe_coord(pa + r * kStride + 256, c, v);
+  Ring ring = ring_init(ring_mem, threadIdx.x >= kThreads);
+  if (threadIdx.x >= kThreads) {               // the producer warpgroup
+    become_producer();
+    if (threadIdx.x == kThreads) produce_template(ring, wt);
+    return;
   }
-  zero_pe_pad(pa);
-  __syncthreads();
+  become_consumer();
+  Products products = first_products(ring, false);
+  // each warp builds, and later stores, its own 16 rows of the tile
+  const int wm = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * 16;
 
-  template_mlp(pa, pb, wt, s_geo, s_clr);
-
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-    if (base + i / 3 < n) {
-      rgb[static_cast<size_t>(base) * 3 + i] = sigmoidf_accurate(s_clr[i]);
-    }
+  // PE(10) of the f32 points into pe[:, 0:64]
+  for (int i = lane; i < 16 * 3; i += 32) {
+    const int r = row0 + i / 3, c = i % 3;
+    const float v = base + r < n ? pts[static_cast<size_t>(base + r) * 3 + c] : 0.f;
+    pe_coord(pe, r, c, v);
   }
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+  zero_pe_pad(pe);
+  fence_panel_writes();
+  group_sync(wm);
+
+  template_mlp(pe, wm, products, wt, s_geo, s_clr);
+
+  for (int i = lane; i < 16 * 3; i += 32) {
+    const int r = row0 + i / 3, c = i % 3;
     if (base + r < n) {
-      occ[base + r] = s_geo[2 * r];
-      alpha[base + r] = fmaxf(s_geo[2 * r + 1], 0.f);
+      rgb[static_cast<size_t>(base + r) * 3 + c] = sigmoidf_accurate(s_clr[r * 3 + c]);
     }
+  }
+  if (lane < 16 && base + row0 + lane < n) {
+    const int r = row0 + lane;
+    occ[base + r] = s_geo[2 * r];
+    alpha[base + r] = fmaxf(s_geo[2 * r + 1], 0.f);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-offset_query_kernel(const float* __restrict__ feats, int n, OffsetWeights wt,
+__global__ void __launch_bounds__(kBlockThreads, 1)
+offset_query_kernel(const float* __restrict__ feats, int n, HalfWeights wt,
                     float* __restrict__ offset) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* pb = pa + kTile * kStride;
-  float* s_off = reinterpret_cast<float*>(pb + kTile * kStride);  // [T][3]
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring_mem = smem + kXPanelBytes;
+  float* s_off = reinterpret_cast<float*>(ring_mem + kRingBytes);  // [T][3]
   const int base = blockIdx.x * kTile;
 
-  // decoder input x = bf16(feats) in pa[:, 0:67], zero to 80
-  for (int i = threadIdx.x; i < kTile * kOffsetIn; i += kThreads) {
-    const int r = i / kOffsetIn;
-    const float v = base + r < n ? feats[static_cast<size_t>(base) * kOffsetIn + i] : 0.f;
-    pa[r * kStride + (i - kOffsetIn * r)] = __float2bfloat16_rn(v);
+  Ring ring = ring_init(ring_mem, threadIdx.x >= kThreads);
+  if (threadIdx.x >= kThreads) {               // the producer warpgroup
+    become_producer();
+    if (threadIdx.x == kThreads) produce_offset(ring, wt);
+    return;
   }
-  zero_input_pad(pa);
-  __syncthreads();
+  become_consumer();
+  Products products = first_products(ring, false);
+  // each warp builds, and later stores, its own 16 rows of the tile
+  const int wm = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * 16;
 
-  offset_decoder(pa, pb, wt, s_off);
+  // decoder input x = bf16(feats) in xs[:, 0:67], zero to 80
+  for (int i = lane; i < 16 * kOffsetIn; i += 32) {
+    const int r = row0 + i / kOffsetIn, c = i % kOffsetIn;
+    const float v =
+        base + r < n ? feats[static_cast<size_t>(base + r) * kOffsetIn + c] : 0.f;
+    xs[panel_off(r, c)] = __float2bfloat16_rn(v);
+  }
+  zero_input_pad(xs);
+  fence_panel_writes();
+  group_sync(wm);
 
-  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-    if (base + i / 3 < n) offset[static_cast<size_t>(base) * 3 + i] = s_off[i];
+  offset_decoder(xs, wm, products, wt, s_off);
+
+  for (int i = lane; i < 16 * 3; i += 32) {
+    const int r = row0 + i / 3, c = i % 3;
+    if (base + r < n) offset[static_cast<size_t>(base + r) * 3 + c] = s_off[r * 3 + c];
   }
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes). Launch on `stream` and return the
-// cudaError_t of the launch (0 = success).
-// K4: pts (N, 3) f32; weight_ptrs holds the 24 template pointers of
-// pack_template_weights; rgb (N, 3), alpha (N, 1), occ (N, 1) f32.
-extern "C" int tq_launch(const float* pts, int n, const void* const* weight_ptrs,
-                         float* rgb, float* alpha, float* occ, void* stream) {
+// cudaError_t of the launch (0 = success). image and bias are one half of
+// the weight image of ops/fused_query.py: weight_image (16-byte aligned).
+// K4: pts (N, 3) f32; the template half; rgb (N, 3), alpha (N, 1),
+// occ (N, 1) f32.
+extern "C" int tq_launch(const float* pts, int n, const void* image,
+                         const void* bias, float* rgb, float* alpha, float* occ,
+                         void* stream) {
   if (n <= 0) return 0;
-  const TemplateWeights wt = template_weights(weight_ptrs);
+  const HalfWeights wt{static_cast<const __nv_bfloat16*>(image),
+                       static_cast<const float*>(bias)};
   cudaError_t err = cudaFuncSetAttribute(
       template_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      static_cast<int>(kTemplateSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  template_query_kernel<<<(n + kTile - 1) / kTile, kThreads, kSmemBytes,
+  template_query_kernel<<<(n + kTile - 1) / kTile, kBlockThreads, kTemplateSmemBytes,
                           static_cast<cudaStream_t>(stream)>>>(pts, n, wt, rgb,
                                                                alpha, occ);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: feats (N, 67) f32; weight_ptrs holds the 16 offset pointers of
-// pack_offset_weights; offset (N, 3) f32.
-extern "C" int oq_launch(const float* feats, int n, const void* const* weight_ptrs,
-                         float* offset, void* stream) {
+// K5: feats (N, 67) f32; the offset half; offset (N, 3) f32.
+extern "C" int oq_launch(const float* feats, int n, const void* image,
+                         const void* bias, float* offset, void* stream) {
   if (n <= 0) return 0;
-  const OffsetWeights wt = offset_weights(weight_ptrs);
+  const HalfWeights wt{static_cast<const __nv_bfloat16*>(image),
+                       static_cast<const float*>(bias)};
   cudaError_t err = cudaFuncSetAttribute(
       offset_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      static_cast<int>(kOffsetSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  offset_query_kernel<<<(n + kTile - 1) / kTile, kThreads, kSmemBytes,
+  offset_query_kernel<<<(n + kTile - 1) / kTile, kBlockThreads, kOffsetSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(feats, n, wt, offset);
   return static_cast<int>(cudaGetLastError());
 }

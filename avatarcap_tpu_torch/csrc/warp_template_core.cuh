@@ -7,38 +7,62 @@
 // _warp_template_core (:255-296); _offset_kernel (:115-129) and
 // _template_kernel (:53-81) are its two halves.
 //
-// A block owns a tile of kTile = 128 points and two ping-pong bf16
-// activation panels pa, pb [128][kStride] in shared memory:
-//   - offset_decoder: input x = [bf16 pts (3), pose features (64)] in
-//     pa[:, 0:67] with pa[:, 67:80] zero; the hidden layers use columns
-//     [80, 336) of both panels, so x stays in place for the skip concat
-//     [x, h] (323 channels, walked as 336 with the 67..79 pad); OffsetDecoder
-//     (eval BN folded) = 4 x (Linear 256, softplus), concat, 3 x (Linear 256,
-//     softplus), Linear 3 -> f32 offset in s_off [T][3];
-//   - template_mlp: input the PE(10) of the f32 point (pe_coord) in
-//     pa[:, 256:319] with column 319 zero; the shared MLP uses columns
-//     [0, 256), so the PE stays in place for the res concat [h, pe] (319,
-//     walked as 320); 4 x (Linear 256, ReLU), concat, 2 x (Linear 256, ReLU),
+// A block owns a tile of kTile = 128 points, 64 per consumer warpgroup. A
+// warpgroup keeps its rows' hidden activations in registers for the whole
+// chain; only the two kinds of input that the concats need again live in
+// shared memory, as bf16 panels of 128 rows (panel_off):
+//   - offset_decoder: input x = [bf16 pts (3), pose features (64)] in the
+//     x panel's columns [0, 67) with [67, 80) zero; OffsetDecoder (eval BN
+//     folded) = 4 x (Linear 256, softplus), skip concat [x, h] (323
+//     channels, walked as 80 + 256), 3 x (Linear 256, softplus), Linear 3
+//     -> f32 offset in s_off [T][3];
+//   - template_mlp: input the PE(10) of the f32 point (pe_coord) in the pe
+//     panel's columns [0, 63) with column 63 zero; 4 x (Linear 256, ReLU),
+//     res concat [h, pe] (319, walked as 256 + 64), 2 x (Linear 256, ReLU),
 //     Linear 256 (no activation) -> feat; geo: Linear 128 + leaky 0.02,
 //     Linear 2 -> s_geo [T][2]; color: Linear 256 + ReLU, Linear 128 + ReLU,
 //     Linear 3 -> s_clr [T][3], before the sigmoid.
 // Rounding points are those of the TPU kernels: every product takes bf16
 // operands and accumulates in f32, the f32 bias added after; every
-// activation is rounded to bf16 after its nonlinearity; softplus =
-// logaddexp(x, 0) in f32; the PE uses the accurate sinf/cosf (its arguments
-// reach hundreds of radians at 2^9 x, where the fast intrinsics lose
-// accuracy; never build with fast math).
+// activation is rounded to bf16 after its nonlinearity; the PE uses the
+// accurate sinf/cosf (its arguments reach hundreds of radians at 2^9 x,
+// where the fast intrinsics lose accuracy; never build with fast math).
+// softplus = logaddexp(x, 0) in f32 from the hardware's ex2 approximation
+// and a polynomial (softplus_bf16_grade), within 2^-19 of the accurate
+// value before the bf16 rounding.
 //
-// Each layer is a [128 x K] x [K x O] product on mma.sync m16n8k16 bf16
-// instructions with f32 accumulators: the 8 warps split the O columns, each
-// covering all 128 rows, and the epilogue (bias, activation, bf16 rounding)
-// runs on the accumulator registers and writes the next panel. The ~2 MB of
-// weights do not fit in shared memory (227 KB a block): each warp streams
-// its B fragments from the 50 MB L2, one k-step ahead of the products
-// (register double buffer). The B-fragment loader maps a zero-padded K
-// column to its real weight column or to zero, so the packed (O, I) weights
-// are used as they are. The panel row stride of 344 bf16 (172 words) keeps
-// the fragment loads and stores free of bank conflicts.
+// How a layer runs on an H100. Each of the 17 wide layers (O = 256 or 128)
+// is a [64 x K] x [K x O] product per warpgroup on the warpgroup matrix
+// multiply (wgmma m64n256k16 / m64n128k16, f32 accumulators in registers):
+//   - A comes from registers wherever it is a hidden activation: a thread's
+//     accumulators of columns [16 j, 16 j + 16), after bias, activation and
+//     rounding to bf16 pairs, are exactly its A fragment of the next
+//     layer's k-step j, so the epilogue writes registers and no hidden
+//     activation touches shared memory; nothing but the ring couples the
+//     two warpgroups, so one's epilogue can run beside the other's
+//     products. The x and pe inputs (first layers, concats) are read by
+//     wgmma from their panels: unswizzled K-major core matrices of 8 rows x
+//     8 bf16 (128 contiguous bytes), element (row, col) at
+//     ((col / 8) * 128 + row) * 8 + col % 8;
+//   - B comes from one image that the host builds once per packed set
+//     (ops/fused_query.py: weight_image): K zero-padded per layer to the
+//     inputs' column blocks, cut into chunks of 16 k (8 KB at O = 256, 4 KB
+//     at O = 128) that follow each other in the order the chain runs them,
+//     each chunk in the same core-matrix layout, [k / 8][n][k % 8];
+//   - a producer thread (the first of a third warpgroup, warps 8-11, which
+//     gives its registers to the consumers: setmaxnreg 24 / 240; a lone
+//     ninth warp would cap every thread at 168 registers, a scheduler's
+//     file over three warps) streams the chunks through a ring of kStages
+//     8 KB stages in shared memory with the 1-D bulk copy
+//     (cp.async.bulk ... mbarrier::complete_tx::bytes), one full and one
+//     empty mbarrier per stage; the stream ignores layer boundaries, and
+//     each weight byte crosses L2 -> shared memory once per tile;
+//   - a consumer warpgroup waits for a chunk, issues one wgmma for its 64
+//     rows and all O columns, and frees the stage of the chunk before it
+//     once that product has retired.
+// The three heads (O <= 8) run on mma.sync from the same register
+// fragments, their weights, which follow the chunks in the image, straight
+// from L2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,183 +70,455 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kTile = 128;                   // points per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMTiles = kTile / 16;          // m16 row tiles per panel
-constexpr int kStride = 344;                 // bf16 per panel row
+constexpr int kWarps = 8;                    // consumer warps
+constexpr int kThreads = kWarps * 32;        // consumer threads
+constexpr int kBlockThreads = kThreads + 128; // + the producer warpgroup
+constexpr int kGroupRows = 64;               // rows per consumer warpgroup
+constexpr int kXCols = 80;                   // x panel: 67 inputs, padded
+constexpr int kPeCols = 64;                  // pe panel: 63 encodings, padded
 constexpr int kFreqs = 10;
-constexpr int kOffsetLayers = 8;
-constexpr int kTemplateLayers = 12;
 
-constexpr size_t kPanelBytes = sizeof(__nv_bfloat16) * kTile * kStride;
+constexpr size_t kXPanelBytes = sizeof(__nv_bfloat16) * kTile * kXCols;
+constexpr size_t kPePanelBytes = sizeof(__nv_bfloat16) * kTile * kPeCols;
+// between a panel's column groups (8 columns of all rows), and between the
+// 8-row groups inside one: the two strides of a wgmma descriptor
+constexpr int kGroupBytes = kTile * 16;
+constexpr int kCoreBytes = 128;
 
-static_assert((kStride / 2) % 8 == 4, "panel stride must avoid bank conflicts");
-
-struct OffsetWeights {
-  const __nv_bfloat16* w[kOffsetLayers];     // (O, I) row-major
-  const float* b[kOffsetLayers];             // (O,)
-};
-
-struct TemplateWeights {
-  const __nv_bfloat16* w[kTemplateLayers];
-  const float* b[kTemplateLayers];
-};
-
-// (weight, bias) pointer pairs in the order of ops/fused_query.py's packers.
-__host__ inline OffsetWeights offset_weights(const void* const* ptrs) {
-  OffsetWeights wt;
-  for (int i = 0; i < kOffsetLayers; ++i) {
-    wt.w[i] = static_cast<const __nv_bfloat16*>(ptrs[2 * i]);
-    wt.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
-  }
-  return wt;
+// Element index of (row, col) in a panel.
+__device__ __forceinline__ int panel_off(int row, int col) {
+  return ((col >> 3) * kTile + row) * 8 + (col & 7);
 }
 
-__host__ inline TemplateWeights template_weights(const void* const* ptrs) {
-  TemplateWeights wt;
-  for (int i = 0; i < kTemplateLayers; ++i) {
-    wt.w[i] = static_cast<const __nv_bfloat16*>(ptrs[2 * i]);
-    wt.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
-  }
-  return wt;
+// The weight image (ops/fused_query.py: weight_image states the same
+// numbers; tests/test_torch_fused_query.py holds the two together).
+constexpr int kChunkK = 16;                  // k per chunk
+constexpr int kChunkElems256 = 256 * kChunkK;  // bf16 per chunk at O = 256
+constexpr int kChunkElems128 = 128 * kChunkK;
+// offset half: layers 0-6 (K 80, 256, 256, 256, 336, 256, 256), then the
+// 3 x 256 head, row-major
+constexpr int kOffsetChunks = 106;
+constexpr int kOffsetHeadElem = kOffsetChunks * kChunkElems256;
+constexpr int kOffsetImageElems = kOffsetHeadElem + 3 * 256;
+// template half: layers 0-6 (K 64, 256, 256, 256, 320, 256, 256), geo 0
+// (O = 128), color 0, color 1 (O = 128), then the 2 x 128 and 3 x 128 heads
+constexpr int kTemplateSharedChunks = 104;
+constexpr int kTemplateChunks = 152;
+constexpr int kTemplateGeoHeadElem =
+    (kTemplateSharedChunks + 16) * kChunkElems256 + 32 * kChunkElems128;
+constexpr int kTemplateClrHeadElem = kTemplateGeoHeadElem + 2 * 128;
+constexpr int kTemplateImageElems = kTemplateClrHeadElem + 3 * 128;
+// f32 biases of a half, layer after layer, each padded to 4 floats
+constexpr int kOffsetBiasFloats = 7 * 256 + 4;
+constexpr int kTemplateBiasFloats = 7 * 256 + 128 + 4 + 256 + 128 + 4;
+
+static_assert(kOffsetImageElems % 8 == 0 && kOffsetBiasFloats % 4 == 0,
+              "the template half must start 16-byte aligned in a joint image");
+
+// One half of the image: chunks then heads, and its biases.
+struct HalfWeights {
+  const __nv_bfloat16* image;
+  const float* bias;
+};
+
+// Both halves, as a joint image (offset half then template half) holds them.
+struct ChainWeights {
+  HalfWeights off, tpl;
+};
+
+__host__ inline ChainWeights chain_weights(const void* image, const void* bias) {
+  const __nv_bfloat16* img = static_cast<const __nv_bfloat16*>(image);
+  const float* b = static_cast<const float*>(bias);
+  return ChainWeights{{img, b}, {img + kOffsetImageElems, b + kOffsetBiasFloats}};
 }
 
-enum Act { kSoftplus = 0, kRelu = 1, kLeaky = 2, kNone = 3 };
+// ---- the ring of weight chunks -------------------------------------------
+
+constexpr int kStages = 21;
+constexpr int kStageBytes = 2 * kChunkElems256;          // 8 KB
+// stages, then kStages full and kStages + 1 empty mbarriers (8 bytes each;
+// the last empty barrier is a dummy: see Products), padded to 16 bytes
+constexpr size_t kRingBytes = kStages * kStageBytes + (2 * kStages + 2) * 8;
+
+static_assert(kXPanelBytes % 128 == 0 && kPePanelBytes % 128 == 0 &&
+                  kRingBytes % 16 == 0,
+              "the ring follows the panels, 16-byte aligned");
+
+// A thread's view of the ring: the shared-space address of stage 0 and its
+// position in the stream. Consumers start at parity 0 (they wait for a stage
+// to fill), the producer at parity 1 (its first pass finds every stage
+// empty).
+struct Ring {
+  uint32_t stages;   // stage s at stages + s * kStageBytes
+  uint32_t stage, parity;
+};
+
+// The full and the empty barrier of stage s.
+__device__ __forceinline__ uint32_t full_barrier(const Ring& r, uint32_t s) {
+  return r.stages + kStages * kStageBytes + 8 * s;
+}
+
+__device__ __forceinline__ uint32_t empty_barrier(const Ring& r, uint32_t s) {
+  return r.stages + kStages * kStageBytes + 8 * kStages + 8 * s;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed. The loop
+// is inside the asm statement, so the compiler sees straight-line code (a
+// C++ loop here makes it fence every wgmma of the caller's loop).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 1-D bulk copy global -> shared (16-byte aligned source, destination and
+// size); its bytes complete on the mbarrier.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ring_advance(Ring& r) {
+  if (++r.stage == kStages) {
+    r.stage = 0;
+    r.parity ^= 1;
+  }
+}
+
+// Every thread of the block (kBlockThreads) calls this once, first thing:
+// thread 0 initialises the barriers; ends with a barrier of the whole block.
+// `mem` is the kRingBytes region (16-byte aligned).
+__device__ __forceinline__ Ring ring_init(unsigned char* mem, bool producer) {
+  Ring r;
+  r.stages = smem_u32(mem);
+  r.stage = 0;
+  r.parity = producer ? 1u : 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_barrier(r, s), 1);        // the producer's expect_tx arrival
+      mbar_init(empty_barrier(r, s), kWarps);  // one arrival per consumer warp
+    }
+    mbar_init(empty_barrier(r, kStages), kWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The block splits for good right after ring_init: threads past kThreads
+// call become_producer (and return when their stream is sent), the others
+// become_consumer. The producer warpgroup hands registers to the two
+// consumer warpgroups (8 x 240 + 4 x 24 registers a lane fill the SM's file).
+__device__ __forceinline__ void become_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+
+__device__ __forceinline__ void become_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+}
+
+// Barrier of one consumer warpgroup (wm = 0, 1): named barrier 1 + wm. The
+// two warpgroups never wait for each other, and the producer runs ahead on
+// its own.
+__device__ __forceinline__ void group_sync(int wm) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wm) : "memory");
+}
+
+// Producer (one thread): `chunks` chunks of `bytes` each from src into the
+// ring, in order; advances src.
+__device__ __forceinline__ void produce_run(Ring& r, const unsigned char*& src,
+                                            int chunks, uint32_t bytes) {
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    mbar_wait(empty_barrier(r, r.stage), r.parity);
+    mbar_arrive_expect_tx(full_barrier(r, r.stage), bytes);
+    bulk_copy_g2s(r.stages + r.stage * kStageBytes, src, bytes, full_barrier(r, r.stage));
+    src += bytes;
+    ring_advance(r);
+  }
+}
+
+__device__ __forceinline__ void produce_offset(Ring& r, const HalfWeights& w) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w.image);
+  produce_run(r, src, kOffsetChunks, 2 * kChunkElems256);
+}
+
+__device__ __forceinline__ void produce_template(Ring& r, const HalfWeights& w) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w.image);
+  produce_run(r, src, kTemplateSharedChunks, 2 * kChunkElems256);
+  produce_run(r, src, 16, 2 * kChunkElems128);   // geo 0
+  produce_run(r, src, 16, 2 * kChunkElems256);   // color 0
+  produce_run(r, src, 16, 2 * kChunkElems128);   // color 1
+}
+
+// ---- layers ---------------------------------------------------------------
+
+// softplus(x) = logaddexp(x, 0) = max(x, 0) + log(1 + e), e = exp(-|x|), for
+// an epilogue whose result is rounded to bf16. One special-function
+// instruction and 10 FMA-pipe instructions in place of the accurate expf and
+// log1pf: e from ex2.approx.ftz (inline PTX, so no denormal fix-up code
+// around it: an e below 2^-126 may as well be 0), and log(1 + e) = e q(e)
+// with q the degree-7 minimax polynomial of log(1 + e) / e on [0, 1], so
+// small e keeps its relative accuracy and no logarithm is needed. The whole
+// stays within 2^-19 relative of the accurate value. That, not the bf16
+// half-ulp of 2^-9, is the accuracy that counts: an error of 2^-16 moves
+// one activation in ~300 across a bf16 rounding boundary, dozens of times
+// more often than the f32 summation order already does, and every such
+// flip is a full bf16 ulp downstream (seen on the card as more cells of a
+// small frame's iso-surface changing sides).
+// Eight values go through it stage by stage: a warp in its epilogue has the
+// issue slots of its scheduler nearly to itself (the other warpgroup's warp
+// there sits in wgmma), so what hides the ~12-instruction dependent chain
+// is independent chains side by side, not other warps.
+__device__ __forceinline__ void softplus_bf16_grade(float (&v)[8]) {
+  constexpr float kQ[8] = {0.9999998211860657f,  -0.49997830390930176f,
+                           0.33282285928726196f, -0.2453630566596985f,
+                           0.1786196231842041f,  -0.10939399152994156f,
+                           0.04533516615629196f, -0.00889513734728098f};
+  float e[8], q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e[i]) : "f"(-fabsf(v[i]) * 1.4426950408889634f));
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = fmaf(kQ[7], e[i], kQ[6]);
+#pragma unroll
+  for (int k = 5; k >= 0; --k) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q[i] = fmaf(q[i], e[i], kQ[k]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = fmaf(e[i], q[i], fmaxf(v[i], 0.f));
+}
+
+// kFloor is max(x, floor) with a run-time floor: 0 for ReLU, -inf for none.
+enum Act { kSoftplus = 0, kFloor = 1, kLeaky = 2 };
 
 template <int ACT>
-__device__ __forceinline__ float activate(float x) {
+__device__ __forceinline__ void activate(float (&v)[8], float floor) {
   if constexpr (ACT == kSoftplus) {
-    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // logaddexp(x, 0)
-  } else if constexpr (ACT == kRelu) {
-    return fmaxf(x, 0.f);
-  } else if constexpr (ACT == kLeaky) {
-    return x >= 0.f ? x : 0.02f * x;
+    softplus_bf16_grade(v);
+  } else if constexpr (ACT == kFloor) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = fmaxf(v[i], floor);
   } else {
-    return x;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = v[i] >= 0.f ? v[i] : 0.02f * v[i];
   }
 }
 
-// Padded activation column kp -> real weight column, or -1 for a zero pad.
-// Columns [0, SEG0) map to themselves, [SEG0, PAD0) are padding, and
-// [PAD0, ...) map to SEG0, SEG0 + 1, ... while below KREAL.
-template <int KREAL, int SEG0, int PAD0>
-__device__ __forceinline__ int weight_col(int kp) {
-  if (kp < PAD0) return kp < SEG0 ? kp : -1;
-  const int k = kp - PAD0 + SEG0;
-  return k < KREAL ? k : -1;
+// Keep the compiler from reading or moving accumulator registers across
+// the asynchronous products' group waits.
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Two consecutive bf16 of weight row n at padded columns kp, kp + 1
-// (kp even), packed low-first as the mma B fragment wants them.
-template <int KREAL, int SEG0, int PAD0>
-__device__ __forceinline__ uint32_t load_b_pair(const __nv_bfloat16* __restrict__ w,
-                                                int n, int out_dim, int kp) {
-  if (n >= out_dim) return 0u;
-  const __nv_bfloat16* row = w + static_cast<size_t>(n) * KREAL;
-  if constexpr (KREAL % 2 == 0 && SEG0 == PAD0) {
-    if (kp < KREAL) return __ldg(reinterpret_cast<const unsigned int*>(row + kp));
-    return 0u;
-  } else {
-    const int k0 = weight_col<KREAL, SEG0, PAD0>(kp);
-    const int k1 = weight_col<KREAL, SEG0, PAD0>(kp + 1);
-    const uint32_t lo = k0 >= 0 ? __ldg(reinterpret_cast<const unsigned short*>(row + k0)) : 0u;
-    const uint32_t hi = k1 >= 0 ? __ldg(reinterpret_cast<const unsigned short*>(row + k1)) : 0u;
-    return lo | (hi << 16);
+// Generic-proxy writes to a panel (an input build) must be fenced before
+// the barrier after which wgmma reads them.
+__device__ __forceinline__ void fence_panel_writes() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A consumer thread's place in the stream of products: the ring, and the
+// stage of the step before (to free once that product has retired; before
+// the kernel's first step it names the dummy barrier past the last stage).
+struct Products {
+  Ring ring;
+  uint32_t prev_stage;
+  uint32_t skew_pending;   // 1 from a skewed start until skew_signal
+};
+
+// The two consumer warpgroups would otherwise do the same thing at the same
+// time: both in their products (sharing the tensor cores), then both in
+// their epilogues (tensor cores idle). So a kernel may ask that, once per
+// block, the second starts kSkewChunks chunks after the first: it waits in
+// first_products until the first has issued that many products
+// (skew_signal), and from then on one's epilogue, input build or fold runs
+// beside the other's products. The lead cannot grow or shrink by itself
+// (both take every chunk of the one ring), and it must stay below kStages,
+// or the first would wait for a stage that only the second can free. The
+// delay is paid once per block: it pays off over the 64 samples of a ray
+// tile (K3), not over one pass of the chain (K1, K4, K5 start together).
+constexpr int kSkewChunks = 13;
+static_assert(kSkewChunks + 4 <= kStages, "the lead must leave the ring room to prefetch");
+
+__device__ __forceinline__ Products first_products(const Ring& ring, bool skew) {
+  if (skew && threadIdx.x >= 128) asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  return Products{ring, static_cast<uint32_t>(kStages), skew ? 1u : 0u};
+}
+
+// By every thread of both warpgroups; the first one's arrive, once.
+__device__ __forceinline__ void skew_signal(Products& p, int wm) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "@p bar.arrive 3, 256;\n"
+      "}\n" ::"r"(wm == 0 ? p.skew_pending : 0u)
+      : "memory");
+  p.skew_pending = 0;
+}
+
+// One arrival per warp on the empty barrier of the step before's stage
+// (lane 0, predicated inside the asm statement: no branch for the compiler
+// to see).
+__device__ __forceinline__ void release_previous(const Products& p) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(empty_barrier(p.ring, p.prev_stage)),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// Before a k-step's wgmma: wait for the ring's next chunk; its descriptor
+// as B (O rows x 16 columns, [k / 8][n][k % 8]).
+template <int O>
+__device__ __forceinline__ uint64_t next_chunk(const Products& p) {
+  mbar_wait(full_barrier(p.ring, p.ring.stage), p.ring.parity);
+  wgmma_fence();
+  return wgmma_desc(p.ring.stages + p.ring.stage * kStageBytes, O * 16, kCoreBytes);
+}
+
+// After it: at most this product stays in flight; the chunk of the step
+// before (the last one of the layer before, for a layer's first step) is
+// free.
+__device__ __forceinline__ void chunk_issued(Products& p) {
+  wgmma_commit();
+  wgmma_wait<1>();
+  release_previous(p);
+  p.prev_stage = p.ring.stage;
+  ring_advance(p.ring);
+}
+
+// acc (+)= A B over KSTEPS k-steps, A the thread's register fragments
+// h[4 ks ..], B the ring's next chunks. acc holds O / 2 accumulators a
+// thread: rows 16 warp4 + g, + 8 of the warpgroup's 64 and columns
+// 8 n + 2 t, + 1 in acc[4 n + {0, 1}], {2, 3}. accumulate = 0 starts a layer.
+// SIGNAL_AFTER > 0: skew_signal once that many steps are issued.
+template <int O, int KSTEPS, int SIGNAL_AFTER = 0>
+__device__ __forceinline__ void products_from_registers(float (&acc)[O / 2],
+                                                        const uint32_t (&h)[4 * KSTEPS],
+                                                        Products& p, int accumulate,
+                                                        int wm = 0) {
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    if (SIGNAL_AFTER > 0 && ks == SIGNAL_AFTER) skew_signal(p, wm);
+    const uint64_t desc_b = next_chunk<O>(p);
+    if constexpr (O == 256) {
+      wgmma_m64n256k16_rs(acc, h[4 * ks], h[4 * ks + 1], h[4 * ks + 2], h[4 * ks + 3],
+                          desc_b, ks > 0 ? 1 : accumulate);
+    } else {
+      wgmma_m64n128k16_rs(acc, h[4 * ks], h[4 * ks + 1], h[4 * ks + 2], h[4 * ks + 3],
+                          desc_b, ks > 0 ? 1 : accumulate);
+    }
+    chunk_issued(p);
   }
 }
 
-// One hidden layer: out[:, co:co+O] = bf16(act(in[:, ci:ci+KPAD] W^T + b)).
-// The 8 warps split the O output columns; each warp covers all 128 rows.
-template <int KPAD, int KREAL, int SEG0, int PAD0, int O, int ACT>
-__device__ __forceinline__ void dense_layer(const __nv_bfloat16* in, int ci,
-                                            __nv_bfloat16* out, int co,
-                                            const __nv_bfloat16* __restrict__ w,
-                                            const float* __restrict__ bias) {
-  constexpr int kNT = O / 8 / kWarps;       // n8 tiles per warp
-  constexpr int kKSteps = KPAD / 16;
-  static_assert(kNT >= 1 && kNT * 8 * kWarps == O, "O must split over warps");
-  static_assert(KPAD % 16 == 0, "K must be padded to 16");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = warp * kNT * 8;
-
-  float acc[kMTiles][kNT][4];
+// The same with A read by wgmma from the warpgroup's 64 rows of a panel,
+// from column 0 (a 256-column layer only).
+template <int KSTEPS>
+__device__ __forceinline__ void products_from_panel(float (&acc)[128],
+                                                    const __nv_bfloat16* panel, int wm,
+                                                    Products& p, int accumulate) {
+  const uint64_t desc_a = wgmma_desc(smem_u32(panel + panel_off(wm * kGroupRows, 0)),
+                                     kGroupBytes, kCoreBytes);
 #pragma unroll
-  for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  uint32_t bcur[kNT][2], bnext[kNT][2];
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    bcur[n][0] = load_b_pair<KREAL, SEG0, PAD0>(w, n0 + n * 8 + g, O, 2 * t);
-    bcur[n][1] = load_b_pair<KREAL, SEG0, PAD0>(w, n0 + n * 8 + g, O, 2 * t + 8);
-  }
-#pragma unroll 1
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    if (ks + 1 < kKSteps) {
-      const int kb = (ks + 1) * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        bnext[n][0] = load_b_pair<KREAL, SEG0, PAD0>(w, n0 + n * 8 + g, O, kb);
-        bnext[n][1] = load_b_pair<KREAL, SEG0, PAD0>(w, n0 + n * 8 + g, O, kb + 8);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      uint32_t a[4];
-      load_a<kStride>(a, in, m * 16 + g, ci + ks * 16 + 2 * t);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) mma16816(acc[m][n], a, bcur[n][0], bcur[n][1]);
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      bcur[n][0] = bnext[n][0];
-      bcur[n][1] = bnext[n][1];
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    const int col = n0 + n * 8 + 2 * t;
-    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      const int row = m * 16 + g;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(
-          activate<ACT>(acc[m][n][0] + b0), activate<ACT>(acc[m][n][1] + b1));
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(
-          activate<ACT>(acc[m][n][2] + b0), activate<ACT>(acc[m][n][3] + b1));
-      *reinterpret_cast<__nv_bfloat162*>(out + row * kStride + co + col) = lo;
-      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * kStride + co + col) = hi;
-    }
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const uint64_t desc_b = next_chunk<256>(p);
+    wgmma_m64n256k16(acc, desc_a + static_cast<uint64_t>(ks * (2 * kGroupBytes >> 4)),
+                     desc_b, ks > 0 ? 1 : accumulate);
+    chunk_issued(p);
   }
 }
 
-// An output head with O <= 8 columns (f32, no activation): warp w computes
-// rows [16 w, 16 w + 16) of one n8 tile and writes dst[row * O + col].
-template <int K, int O>
-__device__ __forceinline__ void head_layer(const __nv_bfloat16* in, int ci,
+// After a layer's last step: all products retired, acc readable. (The last
+// chunk's stage is freed by the next layer's first step.)
+template <int N>
+__device__ __forceinline__ void products_done(float (&acc)[N]) {
+  wgmma_wait<0>();
+  fence_registers(acc);
+}
+
+// The epilogue of a wide layer into registers: h = bf16(act(acc + b)) as the
+// next layer's A fragments (h[4 j ..] for its k-step j: columns
+// [16 j, 16 j + 16) of this layer's output), eight values at a time.
+template <int O, int ACT>
+__device__ __forceinline__ void epilogue(const float (&acc)[O / 2], uint32_t (&h)[O / 4],
+                                         const float* __restrict__ bias, float floor = 0.f) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < O / 16; ++j) {
+    // columns 16 j + 2 t, + 1 (rows g, g + 8) and the same + 8
+    const float2 b_lo = __ldg(reinterpret_cast<const float2*>(bias + 16 * j + 2 * t));
+    const float2 b_hi = __ldg(reinterpret_cast<const float2*>(bias + 16 * j + 8 + 2 * t));
+    float v[8] = {acc[8 * j] + b_lo.x,     acc[8 * j + 1] + b_lo.y,
+                  acc[8 * j + 2] + b_lo.x, acc[8 * j + 3] + b_lo.y,
+                  acc[8 * j + 4] + b_hi.x, acc[8 * j + 5] + b_hi.y,
+                  acc[8 * j + 6] + b_hi.x, acc[8 * j + 7] + b_hi.y};
+    activate<ACT>(v, floor);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      h[4 * j + i] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
+    // keep the bias loads of later groups from piling up in registers
+    asm volatile("" ::: "memory");
+  }
+}
+
+// An output head with O <= 8 columns (f32, no activation) on mma.sync: each
+// warp computes its 16 rows from the register fragments h of K = 16 KSTEPS
+// columns and writes dst[row * O + col] (rows of the tile). Its (O, K)
+// row-major weights come straight from L2.
+template <int KSTEPS, int O>
+__device__ __forceinline__ void head_layer(const uint32_t (&h)[4 * KSTEPS],
                                            const __nv_bfloat16* __restrict__ w,
-                                           const float* __restrict__ bias,
-                                           float* dst) {
-  static_assert(O <= 8 && K % 16 == 0 && kMTiles == kWarps, "head shape");
+                                           const float* __restrict__ bias, float* dst) {
+  static_assert(O <= 8, "head shape");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const unsigned int* row_w =
+      reinterpret_cast<const unsigned int*>(w + (g < O ? g : 0) * (16 * KSTEPS));
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int ks = 0; ks < K / 16; ++ks) {
-    const int kb = ks * 16 + 2 * t;
-    const uint32_t b0 = load_b_pair<K, K, K>(w, g, O, kb);
-    const uint32_t b1 = load_b_pair<K, K, K>(w, g, O, kb + 8);
-    uint32_t a[4];
-    load_a<kStride>(a, in, warp * 16 + g, ci + ks * 16 + 2 * t);
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const uint32_t b0 = g < O ? __ldg(row_w + ks * 8 + t) : 0u;
+    const uint32_t b1 = g < O ? __ldg(row_w + ks * 8 + t + 4) : 0u;
+    const uint32_t a[4] = {h[4 * ks], h[4 * ks + 1], h[4 * ks + 2], h[4 * ks + 3]};
     mma16816(acc, a, b0, b1);
   }
   const int row = warp * 16 + g;
@@ -237,92 +533,105 @@ __device__ __forceinline__ void head_layer(const __nv_bfloat16* in, int ci,
   }
 }
 
-// Zero the decoder input's pad columns pa[:, 67:80].
-__device__ __forceinline__ void zero_input_pad(__nv_bfloat16* pa) {
+// Zero the x panel's pad columns [67, 80) of this warp's 16 rows.
+__device__ __forceinline__ void zero_input_pad(__nv_bfloat16* xs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < kTile * 13; i += kThreads) {
+  for (int i = lane; i < 16 * 13; i += 32) {
     const int r = i / 13, c = i - 13 * r;
-    pa[r * kStride + 67 + c] = zero;
+    xs[panel_off(warp * 16 + r, 67 + c)] = zero;
   }
 }
 
-// OffsetDecoder + head on x = pa[:, 0:80] -> s_off [T][3] (f32). Ends with
-// a barrier; pa[:, 0:80] is left as it was.
-__device__ __forceinline__ void offset_decoder(__nv_bfloat16* pa, __nv_bfloat16* pb,
-                                               const OffsetWeights& wt, float* s_off) {
-  dense_layer<80, 67, 67, 80, 256, kSoftplus>(pa, 0, pb, 80, wt.w[0], wt.b[0]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kSoftplus>(pb, 80, pa, 80, wt.w[1], wt.b[1]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kSoftplus>(pa, 80, pb, 80, wt.w[2], wt.b[2]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kSoftplus>(pb, 80, pa, 80, wt.w[3], wt.b[3]);
-  __syncthreads();
-  // skip concat [x (67), h (256)] = pa[:, 0:336] with the 67..79 pad
-  dense_layer<336, 323, 67, 80, 256, kSoftplus>(pa, 0, pb, 80, wt.w[4], wt.b[4]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kSoftplus>(pb, 80, pa, 80, wt.w[5], wt.b[5]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kSoftplus>(pa, 80, pb, 80, wt.w[6], wt.b[6]);
-  __syncthreads();
-  head_layer<256, 3>(pb, 80, wt.w[7], wt.b[7], s_off);
-  __syncthreads();
+// OffsetDecoder + head on the x panel (rows of warpgroup wm, written, fenced
+// and followed by group_sync by the caller) -> s_off [T][3] (f32), its 106
+// chunks taken from the ring. Each warp writes its own 16 rows of s_off and
+// ends with __syncwarp. Layers 1-6 share one body (a loop that is not
+// unrolled: each body is 16-21 wgmma statements of 130 operands).
+__device__ __forceinline__ void offset_decoder(const __nv_bfloat16* xs, int wm, Products& p,
+                                               const HalfWeights& wt, float* s_off) {
+  const float* b = wt.bias;
+  uint32_t h[64];
+  float acc[128];
+  products_from_panel<kXCols / kChunkK>(acc, xs, wm, p, 0);
+  products_done(acc);
+  epilogue<256, kSoftplus>(acc, h, b);
+#pragma unroll 1
+  for (int layer = 1; layer < 7; ++layer) {
+    // layer 4: skip concat [x (67, padded to 80), h (256)]; the two calls
+    // differ in a compile-time flag only (a run-time one costs registers:
+    // ptxas then spills)
+    if (layer == 4) {
+      products_from_panel<kXCols / kChunkK>(acc, xs, wm, p, 0);
+      products_from_registers<256, 16>(acc, h, p, 1, wm);
+    } else {
+      products_from_registers<256, 16, kSkewChunks - kXCols / kChunkK>(acc, h, p, 0, wm);
+    }
+    products_done(acc);
+    epilogue<256, kSoftplus>(acc, h, b + 256 * layer);
+  }
+  head_layer<16, 3>(h, wt.image + kOffsetHeadElem, b + 1792, s_off);
+  __syncwarp();
 }
 
-// PE(10) of coordinate c of an f32 point, into its panel row (from column
-// 256): [x, sin x, cos x, sin 2x, cos 2x, ...] interleaved over x, y, z.
-__device__ __forceinline__ void pe_coord(__nv_bfloat16* row, int c, float x) {
-  row[c] = __float2bfloat16_rn(x);
+// PE(10) of coordinate c of the f32 point of row r, into the pe panel:
+// [x, sin x, cos x, sin 2x, cos 2x, ...] interleaved over x, y, z.
+__device__ __forceinline__ void pe_coord(__nv_bfloat16* pe, int r, int c, float x) {
+  pe[panel_off(r, c)] = __float2bfloat16_rn(x);
   float scale = 1.f;
 #pragma unroll
   for (int k = 0; k < kFreqs; ++k) {
     const float xf = x * scale;
-    row[3 + 6 * k + c] = __float2bfloat16_rn(sinf(xf));
-    row[6 + 6 * k + c] = __float2bfloat16_rn(cosf(xf));
+    pe[panel_off(r, 3 + 6 * k + c)] = __float2bfloat16_rn(sinf(xf));
+    pe[panel_off(r, 6 + 6 * k + c)] = __float2bfloat16_rn(cosf(xf));
     scale *= 2.f;
   }
 }
 
-// Zero the PE's pad column pa[:, 319].
-__device__ __forceinline__ void zero_pe_pad(__nv_bfloat16* pa) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int r = threadIdx.x; r < kTile; r += kThreads) pa[r * kStride + 319] = zero;
+// Zero the pe panel's pad column 63 of this warp's 16 rows.
+__device__ __forceinline__ void zero_pe_pad(__nv_bfloat16* pe) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < 16) pe[panel_off(warp * 16 + lane, 63)] = __float2bfloat16_rn(0.f);
 }
 
-// DoubleTNet on the PE in pa[:, 256:320] -> s_geo [T][2] and the color
-// logits s_clr [T][3] (f32). Ends with a barrier.
-__device__ __forceinline__ void template_mlp(__nv_bfloat16* pa, __nv_bfloat16* pb,
-                                             const TemplateWeights& wt, float* s_geo,
+// DoubleTNet on the pe panel (rows of warpgroup wm, written, fenced and
+// followed by group_sync by the caller) -> s_geo [T][2] and the color logits
+// s_clr [T][3] (f32), its 152 chunks taken from the ring. Each warp writes
+// its own 16 rows and ends with __syncwarp. Layers 1-6 of the shared MLP
+// share one body, as in offset_decoder.
+__device__ __forceinline__ void template_mlp(const __nv_bfloat16* pe, int wm, Products& p,
+                                             const HalfWeights& wt, float* s_geo,
                                              float* s_clr) {
-  // shared MLP: hidden panel columns [0, 256); pe at [256, 320)
-  dense_layer<64, 63, 63, 64, 256, kRelu>(pa, 256, pb, 0, wt.w[0], wt.b[0]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kRelu>(pb, 0, pa, 0, wt.w[1], wt.b[1]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kRelu>(pa, 0, pb, 0, wt.w[2], wt.b[2]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kRelu>(pb, 0, pa, 0, wt.w[3], wt.b[3]);
-  __syncthreads();
-  // res concat [h (256), pe (63)] = pa[:, 0:320] with column 319 zero
-  dense_layer<320, 319, 319, 320, 256, kRelu>(pa, 0, pb, 0, wt.w[4], wt.b[4]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kRelu>(pb, 0, pa, 0, wt.w[5], wt.b[5]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 256, kNone>(pa, 0, pb, 0, wt.w[6], wt.b[6]);
-  __syncthreads();                                            // feat in pb
+  const float* b = wt.bias;
+  uint32_t h[64], hs[32];
+  float acc[128], acc_s[64];
+  products_from_panel<kPeCols / kChunkK>(acc, pe, wm, p, 0);
+  products_done(acc);
+  epilogue<256, kFloor>(acc, h, b);
+#pragma unroll 1
+  for (int layer = 1; layer < 7; ++layer) {
+    products_from_registers<256, 16, kSkewChunks - kPeCols / kChunkK>(acc, h, p, 0, wm);
+    // layer 4: res concat [h (256), pe (63, padded to 64)]
+    if (layer == 4) products_from_panel<kPeCols / kChunkK>(acc, pe, wm, p, 1);
+    products_done(acc);
+    // layers 1-5 ReLU; layer 6 (feat) has no activation
+    epilogue<256, kFloor>(acc, h, b + 256 * layer, layer == 6 ? -INFINITY : 0.f);
+  }
 
   // geometry head
-  dense_layer<256, 256, 256, 256, 128, kLeaky>(pb, 0, pa, 0, wt.w[7], wt.b[7]);
-  __syncthreads();
-  head_layer<128, 2>(pa, 0, wt.w[8], wt.b[8], s_geo);
-  __syncthreads();
+  products_from_registers<128, 16>(acc_s, h, p, 0);
+  products_done(acc_s);
+  epilogue<128, kLeaky>(acc_s, hs, b + 1792);
+  head_layer<8, 2>(hs, wt.image + kTemplateGeoHeadElem, b + 1920, s_geo);
   // color head
-  dense_layer<256, 256, 256, 256, 256, kRelu>(pb, 0, pa, 0, wt.w[9], wt.b[9]);
-  __syncthreads();
-  dense_layer<256, 256, 256, 256, 128, kRelu>(pa, 0, pb, 0, wt.w[10], wt.b[10]);
-  __syncthreads();
-  head_layer<128, 3>(pb, 0, wt.w[11], wt.b[11], s_clr);
-  __syncthreads();
+  products_from_registers<256, 16>(acc, h, p, 0);
+  products_done(acc);
+  epilogue<256, kFloor>(acc, h, b + 1924);
+  products_from_registers<128, 16>(acc_s, h, p, 0);
+  products_done(acc_s);
+  epilogue<128, kFloor>(acc_s, hs, b + 2180);
+  head_layer<8, 3>(hs, wt.image + kTemplateClrHeadElem, b + 2308, s_clr);
+  __syncwarp();
 }
 
 __device__ __forceinline__ float sigmoidf_accurate(float x) {

@@ -23,16 +23,23 @@ What bounds all five on an H100: operations. K1 does ~1.97 MFLOP per point
 against ~172 B of input and output per point (3 f32 + 64 bf16 in, 8 f32
 out); K2 387,072 FLOP against 136 B (33 f32 in, 1 f32 out); K3 ~1.97 MFLOP
 per sample against (6 + A) f32 + 128 bf16 in and 3 f32 out per ray. Each
-kernel keeps a 128-point (or 128-ray) tile's activations in shared memory
-across all its layers, runs every product on bf16 tensor cores with f32
-accumulators, and streams its packed weights (~2 MB, 387 KB) from L2 (see
-the sources' headers).
+kernel keeps a 128-point (or 128-ray) tile's activations on chip across all
+its layers and runs every product on bf16 tensor cores with f32
+accumulators. K1, K3, K4 and K5 run on ``wgmma`` with the hidden
+activations in registers and take their weights as one image
+(``weight_image``: ~2 MB of 16-k chunks in the order and operand layout the
+kernels consume, built once per packed set) that a producer thread streams
+through a ring in shared memory; K2 keeps its activations in shared memory,
+runs on ``mma.sync`` and streams its packed weights (387 KB) from L2 (see the
+sources' headers).
 
 The contract of K1's two versions (the TPU kernel's rounding points):
 points rounded to bf16 only for the decoder input; the PE built from the
 f32 warped points; bf16 operands and f32 accumulation in every product;
 every activation rounded to bf16 after its nonlinearity; softplus =
-logaddexp(x, 0) in f32; eval BatchNorm folded into the packed weights.
+logaddexp(x, 0) in f32 (the kernels evaluate it from the hardware's exp2
+approximation and a polynomial, within 2^-19 of the accurate value, before
+the bf16 rounding); eval BatchNorm folded into the packed weights.
 K4 builds the PE from its f32 input points, K5 rounds all 67 inputs to
 bf16. K3 runs K1's chain per sample on bf16(f32 lerp of the bf16 end
 features) and folds the samples in order (no cumprod), every scalar step
@@ -46,7 +53,8 @@ weight norm folded into the packed weights.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +134,160 @@ def pack_recon_weights(image_decoder) -> Tuple[torch.Tensor, ...]:
         packed += _pack_layer(conv.folded_weight(), conv.bias)
     packed += _pack_layer(fc[3].weight[:, :, 0], fc[3].bias)
     return tuple(packed)
+
+
+# The weight image of K1, K3, K4 and K5 (csrc/warp_template_core.cuh states
+# the same numbers). Wide layers (O = 256 or 128) are zero-padded in K to the
+# column blocks of their inputs (x 80, pe 64, hidden 256) and cut into chunks
+# of CHUNK_K columns;
+# (seg0, pad0, k_pad) per layer: padded columns [0, seg0) are weight columns
+# [0, seg0), [seg0, pad0) are zero, and [pad0, k_pad) continue from weight
+# column seg0 (zero past the last one).
+CHUNK_K = 16
+_OFFSET_PADS = {0: (67, 80, 80), 4: (67, 80, 336)}
+_TEMPLATE_PADS = {0: (63, 64, 64), 4: (319, 320, 320)}
+_BIAS_ALIGN = 4                    # floats: every layer's bias starts aligned
+
+
+def _image_plan(shapes, pads):
+    """[(layer, O, I, seg0, pad0, k_pad)] of a half's wide layers and
+    [(layer, O, I)] of its heads, in chain order."""
+    wide, heads = [], []
+    for layer, (o, i) in enumerate(shapes):
+        if o >= 128:
+            wide.append((layer, o, i) + pads.get(layer, (i, i, i)))
+        else:
+            heads.append((layer, o, i))
+    return wide, heads
+
+
+_PLANS = {"offset": _image_plan(OFFSET_SHAPES, _OFFSET_PADS),
+          "template": _image_plan(TEMPLATE_SHAPES, _TEMPLATE_PADS)}
+
+
+def _half_sizes(half: str):
+    """(chunks, image elements, bias floats) of one half of the image."""
+    wide, heads = _PLANS[half]
+    shapes = OFFSET_SHAPES if half == "offset" else TEMPLATE_SHAPES
+    chunks = sum(k_pad // CHUNK_K for *_, k_pad in wide)
+    elems = (sum(o * k_pad for _, o, _, _, _, k_pad in wide)
+             + sum(o * i for _, o, i in heads))
+    bias = sum(-(-o // _BIAS_ALIGN) * _BIAS_ALIGN for o, _ in shapes)
+    return chunks, elems, bias
+
+
+OFFSET_CHUNKS, OFFSET_IMAGE_ELEMS, OFFSET_BIAS_FLOATS = _half_sizes("offset")
+TEMPLATE_CHUNKS, TEMPLATE_IMAGE_ELEMS, TEMPLATE_BIAS_FLOATS = _half_sizes(
+    "template")
+
+
+def _padded_columns(i: int, seg0: int, pad0: int, k_pad: int, device):
+    """Weight column of each padded column, -1 for a zero pad."""
+    kp = torch.arange(k_pad, device=device)
+    col = torch.where(kp < pad0, kp, kp - pad0 + seg0)
+    zero = ((kp >= seg0) & (kp < pad0)) | (col >= i)
+    return torch.where(zero, torch.full_like(col, -1), col)
+
+
+def _half_image(packed: Sequence[torch.Tensor], half: str):
+    wide, heads = _PLANS[half]
+    parts = []
+    for layer, o, i, seg0, pad0, k_pad in wide:
+        w = packed[2 * layer]
+        col = _padded_columns(i, seg0, pad0, k_pad, w.device)
+        w_pad = torch.where(col >= 0, w[:, col.clamp_min(0)],
+                            torch.zeros((), dtype=w.dtype, device=w.device))
+        # (O, k_pad) -> chunks of CHUNK_K columns, each as wgmma reads an
+        # unswizzled K-major operand: core matrices of 8 rows x 8 columns,
+        # stored [c][k / 8][n][k % 8]
+        parts.append(w_pad.reshape(o, k_pad // CHUNK_K, 2, 8)
+                     .permute(1, 2, 0, 3).reshape(-1))
+    parts += [packed[2 * layer].reshape(-1) for layer, _, _ in heads]
+    biases = []
+    for b in packed[1::2]:
+        biases += [b, b.new_zeros((-b.numel()) % _BIAS_ALIGN)]
+    return torch.cat(parts), torch.cat(biases)
+
+
+def weight_image(packed_offset: Optional[Sequence[torch.Tensor]] = None,
+                 packed_template: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed weights as the one buffer the kernels stream (plain
+    PyTorch, any device): (image, bias), 1-D bf16 and f32.
+
+    Each half given (offset first) holds its wide layers as chunks of
+    CHUNK_K zero-padded input columns, in the order the chain runs them
+    (offset layers 0-6: 106 chunks; template 0-7, 9, 10: 152 chunks; 8 KB
+    a chunk at O = 256, 4 KB at O = 128), each chunk as [k / 8][n][k % 8]
+    (wgmma's unswizzled K-major core matrices), then its heads' (O, I)
+    weights as they are; ``bias`` holds every layer's f32 bias in packed
+    order, each padded to 4 floats. K1 and K3 take both halves, K4 the
+    template half, K5 the offset half.
+    """
+    halves = [_half_image(p, h) for p, h in ((packed_offset, "offset"),
+                                             (packed_template, "template"))
+              if p is not None]
+    if not halves:
+        raise ValueError("weight_image needs at least one packed half")
+    return (torch.cat([h[0] for h in halves]),
+            torch.cat([h[1] for h in halves]))
+
+
+def unpack_weight_image(image: torch.Tensor, half: str
+                        ) -> List[torch.Tensor]:
+    """The (O, I) weights of one half's layers, in packed order, read back
+    from that half of an image (the inverse of ``weight_image``; a joint
+    image's template half starts at OFFSET_IMAGE_ELEMS)."""
+    wide, heads = _PLANS[half]
+    out, pos = {}, 0
+    for layer, o, i, seg0, pad0, k_pad in wide:
+        c = k_pad // CHUNK_K
+        w_pad = (image[pos:pos + o * k_pad].reshape(c, 2, o, 8)
+                 .permute(2, 0, 1, 3).reshape(o, k_pad))
+        pos += o * k_pad
+        col = _padded_columns(i, seg0, pad0, k_pad, image.device)
+        w = image.new_zeros((o, i))
+        w[:, col[col >= 0]] = w_pad[:, col >= 0]
+        out[layer] = w
+    for layer, o, i in heads:
+        out[layer] = image[pos:pos + o * i].reshape(o, i)
+        pos += o * i
+    return [out[layer] for layer in sorted(out)]
+
+
+# images of the packed sets seen lately: the key names each packed tensor's
+# storage and version, and the entry keeps the tensors alive, so a key
+# cannot come to name other weights
+_IMAGES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_MAX_IMAGES = 8
+
+
+def _tensor_version(t: torch.Tensor) -> int:
+    try:
+        return t._version
+    except RuntimeError:            # inference tensors track no version
+        return -1
+
+
+def _cached_weight_image(packed_offset, packed_template):
+    """``weight_image`` of the packed set(s), built once per set."""
+    tensors = tuple(packed_offset or ()) + tuple(packed_template or ())
+    key = (packed_offset is None, packed_template is None) + tuple(
+        (t.data_ptr(), _tensor_version(t)) for t in tensors)
+    hit = _IMAGES.get(key)
+    if hit is None:
+        with torch.no_grad():
+            hit = weight_image(packed_offset, packed_template) + (tensors,)
+        _IMAGES[key] = hit
+        while len(_IMAGES) > _MAX_IMAGES:
+            _IMAGES.popitem(last=False)
+        weight_image.builds += 1
+    else:
+        _IMAGES.move_to_end(key)
+    return hit[0], hit[1]
+
+
+weight_image.builds = 0
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -304,7 +466,7 @@ def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
         raise ValueError(f"expected {2 * len(shapes)} packed tensors, "
                          f"got {len(packed)}")
     for (o, i), w, b in zip(shapes, packed[0::2], packed[1::2]):
-        # the kernel reads weight rows of even length as 4-byte words
+        # K2 reads weight rows of even length as 4-byte words
         if (w.dtype != torch.bfloat16 or tuple(w.shape) != (o, i)
                 or not w.is_contiguous() or w.device != device
                 or w.data_ptr() % 4):
@@ -366,14 +528,13 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
         return out
     launch, err_str = _kernel_fns(
         "warp_template_query", "wtq",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    ptrs = _ptr_array(tuple(packed_offset) + tuple(packed_template))
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7)
+    image, bias = _cached_weight_image(packed_offset, packed_template)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(pts.data_ptr(), pf.data_ptr(), n, ptrs, occ.data_ptr(),
-                     alpha.data_ptr(), rgb.data_ptr(), off.data_ptr(), stream)
+        err = launch(pts.data_ptr(), pf.data_ptr(), n, image.data_ptr(),
+                     bias.data_ptr(), occ.data_ptr(), alpha.data_ptr(),
+                     rgb.data_ptr(), off.data_ptr(), stream)
     _raise_on(err, err_str, "warp_template_query")
     warp_template_query.launches += 1
     return out
@@ -497,15 +658,15 @@ def _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1, danch,
     launch, err_str = _kernel_fns(
         "ray_color_query", "rcq",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-        + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-           ctypes.c_void_p])
-    ptrs = _ptr_array(tuple(packed_offset) + tuple(packed_template))
+        + [ctypes.c_void_p] * 4)
+    image, bias = _cached_weight_image(packed_offset, packed_template)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(f32[0].data_ptr(), f32[1].data_ptr(), bf[0].data_ptr(),
                      bf[1].data_ptr(), f32[2].data_ptr(), f32[3].data_ptr(),
                      r, n_samples, danch.shape[1], near32, gap, step,
-                     _f32(threshold), ptrs, out.data_ptr(), stream)
+                     _f32(threshold), image.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), stream)
     _raise_on(err, err_str, "ray_color_query")
     ray_color_query.launches += 1
     return out
@@ -564,11 +725,11 @@ def _template_launch(packed_template, pts):
         return rgb, alpha, occ
     launch, err_str = _kernel_fns(
         "template_offset_query", "tq",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6)
+    image, bias = _cached_weight_image(None, packed_template)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(pts.data_ptr(), n, _ptr_array(packed_template),
+        err = launch(pts.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
                      rgb.data_ptr(), alpha.data_ptr(), occ.data_ptr(), stream)
     _raise_on(err, err_str, "template_query")
     template_query.launches += 1
@@ -612,11 +773,11 @@ def _offset_launch(packed_offset, feats):
         return out
     launch, err_str = _kernel_fns(
         "template_offset_query", "oq",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.c_void_p, ctypes.c_void_p])
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    image, bias = _cached_weight_image(packed_offset, None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(feats.data_ptr(), n, _ptr_array(packed_offset),
+        err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), stream)
     _raise_on(err, err_str, "offset_query")
     offset_query.launches += 1

@@ -12,7 +12,9 @@ Phases, each fatal on failure:
      widths with weights from fixed torch.Generators, the capture options
      (texture path included) and the camera of the repo's capture
      workload;
-  3. hold kernel K1 (warp_template_query) against its plain PyTorch
+  3. build the weight image K1, K3, K4 and K5 stream (its bytes, chunks and
+     build time are printed; the wrappers build it once per packed set);
+     hold kernel K1 (warp_template_query) against its plain PyTorch
      version on the inputs of the frame's coarse and refine launches, and
      time kernel, plain version and bound; then K1's two halves, K4
      (template_query) and K5 (offset_query), on the coarse launch's
@@ -42,10 +44,11 @@ Phases, each fatal on failure:
      a small subject on the card and on the CPU (f32 path and kernels),
      which must agree; the textured frame's colors through the kernels on
      the card also against the f32 path on the CPU.
-Prints the kernel table as one JSON line, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}. Writes the detailed
-record to chiprun_out/chip_smoke.json. Exits non-zero without a CUDA
-device, without the package next to it, or on any failed phase.
+Prints each kernel's TFLOP/s and the share of its measured time that its
+bound explains, the kernel table as one JSON line, the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}. Writes
+the detailed record to chiprun_out/chip_smoke.json. Exits non-zero without
+a CUDA device, without the package next to it, or on any failed phase.
 """
 
 from __future__ import annotations
@@ -53,15 +56,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 # K1 tolerances against the plain version: both sum bf16 products in f32,
 # in different orders, so a bf16 rounding of an activation can flip; the
 # PE's 2^9 frequency amplifies a flipped offset. 2e-2 is the bf16-level
@@ -103,44 +102,26 @@ class StageClock:
                               + time.perf_counter() - t0)
 
 
-def _timed(fn, device, reps):
-    """Mean milliseconds of fn() over reps calls after one warm-up."""
-    import torch
-    fn()
-    _sync(device)
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
 def measure_launch(kernel, plain, n, macs_per_point, bytes_per_point,
                    weight_bytes, device, plain_reps=3):
-    """Milliseconds of one launch (kernel() over 10 calls, plain() over
-    plain_reps) beside its bound: the larger of its bf16 operations over
-    the peak rate and its bytes (each input read once, each output written
-    once, the packed weights once) over the memory rate. n counts the
-    launch's points (a ray kernel's samples, with bytes per sample)."""
+    """Milliseconds of one launch (CUDA-event means: kernel() over 10
+    calls, plain() over plain_reps, each after a warm-up) beside its bound:
+    the larger of its bf16 operations over the card's peak rate and its
+    bytes (each input read once, each output written once, the packed
+    weights once) over the memory rate (tools/bench_kernels.launch_bound).
+    n counts the launch's points (a ray kernel's samples, with bytes per
+    sample)."""
     import torch
+    from avatarcap_tpu_torch.tools.bench_kernels import (event_ms,
+                                                         launch_bound)
     with torch.inference_mode():
-        ms = _timed(kernel, device, reps=10)
-        plain_ms = _timed(plain, device, reps=plain_reps)
-    flops = 2.0 * macs_per_point * n
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = (n * bytes_per_point + weight_bytes) / PEAK_BYTES_PER_S * 1e3
+        ms = event_ms(kernel, 10)
+        plain_ms = event_ms(plain, plain_reps)
+    bound = launch_bound(n, macs_per_point, bytes_per_point, weight_bytes)
     return {"points": n, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / (ms * 1e-3) / 1e12}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "tflops": bound["flops"] / (ms * 1e-3) / 1e12,
+            "share_of_bound": bound["bound_ms"] / ms}
 
 
 def _weight_bytes(tensors):
@@ -192,6 +173,26 @@ def build_subject(device, vol_res=(384, 384, 128), dense=True, seed=0,
     recon_kw = dict(inferred_normal=inferred, neck_vertex_idx=0,
                     camera=camera)
     return capture, item, recon_kw, n_valid
+
+
+def weight_image_record(capture, device):
+    """Build the weight image of the capture's packed set once, timed (the
+    wrappers build and cache their own at their first launch)."""
+    import torch
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    pk = capture.packed_query
+    fq.weight_image(pk["offset"], pk["template"])               # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    image, bias = fq.weight_image(pk["offset"], pk["template"])
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if image.dtype != torch.bfloat16 or image.numel() != (
+            fq.OFFSET_IMAGE_ELEMS + fq.TEMPLATE_IMAGE_ELEMS):
+        raise AssertionError("the weight image has the wrong size")
+    return {"bytes": image.numel() * 2, "bias_bytes": bias.numel() * 4,
+            "chunks": fq.OFFSET_CHUNKS + fq.TEMPLATE_CHUNKS,
+            "build_ms": ms}
 
 
 def k1_launch_inputs(capture, item):
@@ -761,6 +762,8 @@ def main() -> int:
                          "vol_res": list(capture.grid.vol_res)}
     print(f"[subject] {record['subject']}")
 
+    record["weight_image"] = weight_image_record(capture, device)
+    print(f"[weight_image] {json.dumps(record['weight_image'])}")
     recorded, n_refined = k1_launch_inputs(capture, item)
     k1 = check_k1(capture, recorded, device)
     k1["refined_nodes"] = n_refined
@@ -792,6 +795,10 @@ def main() -> int:
     record["frame_w_nerf"] = frame_n
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
     del capture
+    from avatarcap_tpu_torch.ops.fused_query import weight_image
+    record["weight_image"]["builds_by_wrappers"] = weight_image.builds
+    print(f"[weight_image] built {weight_image.builds} times by the "
+          "wrappers in this run (once per packed set and kernel family)")
     kerns = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5}
     for name, kern in kerns.items():
         # launches of the textured production frame, the slice's main path
@@ -805,10 +812,14 @@ def main() -> int:
             "library_ms")
     kernels_line = {"kernels": [{k: kern[k] for k in keys}
                                 for kern in kerns.values()]}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from avatarcap_tpu_torch.tools.bench_kernels import (
+        PEAK_BF16_FLOPS, gpu_name_and_power_limit)
+    smi = gpu_name_and_power_limit()
+    for name, kern in kerns.items():
+        print(f"[rate] {name} {kern['name']}: {kern['tflops']:.1f} TFLOP/s "
+              f"of {PEAK_BF16_FLOPS / 1e12:.0f}, {kern['ms']:.3f} ms against "
+              f"a bound of {kern['bound_ms']:.3f} ms "
+              f"({100 * kern['share_of_bound']:.1f}%)")
     record.update(kerns)
     record["gpu"] = smi
     record["seconds"] = time.perf_counter() - t_all

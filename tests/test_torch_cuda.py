@@ -55,7 +55,7 @@ def _inputs(n, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 127, 5000])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 5000])
 def test_k1_kernel_matches_plain(card, packed, n):
     from avatarcap_tpu_torch.ops.fused_query import (
         warp_template_query, warp_template_query_plain)
@@ -69,6 +69,69 @@ def test_k1_kernel_matches_plain(card, packed, n):
     for k, v in ref.items():
         assert got[k].shape == v.shape and got[k].device.type == "cuda"
         torch.testing.assert_close(got[k], v, atol=ATOL[k], rtol=0)
+
+
+@pytest.mark.cuda
+def test_two_packed_sets_in_a_row(card, packed):
+    """Two launches in a row on one stream with different packed sets (an
+    avatar's and its texture avatar's): each must run on its own weight
+    image, built once per set."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    from avatarcap_tpu_torch.pipeline.avatar import pack_fused_query_weights
+    from avatarcap_tpu_torch.tools.bench_workloads import (random_avatar,
+                                                           random_tex_avatar)
+    avatar = random_avatar(torch.Generator().manual_seed(0))
+    tex = random_tex_avatar(avatar, torch.Generator().manual_seed(2)).to(card)
+    with torch.no_grad():
+        packed_tex = pack_fused_query_weights(tex)
+    pts, pf = _inputs(1000, card, seed=3)
+    rays = _rays(200, 4, card, seed=4)
+    kw = dict(n_samples=8, near=0.98, far=1.05, threshold=0.08)
+    builds = fq.weight_image.builds
+    got, got_rays = [], []
+    for _ in range(2):                    # second round: cached images
+        for pk in (packed, packed_tex):
+            got.append(fq.warp_template_query(pk["offset"], pk["template"],
+                                              pts, pf))
+            got_rays.append(fq.ray_color_query(pk["offset"], pk["template"],
+                                               *rays, **kw))
+    torch.cuda.synchronize()
+    assert fq.weight_image.builds <= builds + 2
+    for i, pk in enumerate((packed, packed_tex, packed, packed_tex)):
+        ref = fq.warp_template_query_plain(pk["offset"], pk["template"],
+                                           pts, pf)
+        for k, v in ref.items():
+            # the other set's weights would be off by O(1); the bound is
+            # chip_smoke.py's for K1, scaled for the texture avatar's
+            # density row (~10x the geometry head's)
+            atol = 4 * ATOL[k] * max(1.0, float(v.abs().max()))
+            torch.testing.assert_close(got[i][k], v, atol=atol, rtol=0)
+        ref_rays = fq.ray_color_query_plain(pk["offset"], pk["template"],
+                                            *rays, **kw)
+        assert float((got_rays[i] - ref_rays).abs().max()) <= 2e-2
+    # the two sets differ (the density row), so a stale image would show
+    assert float((got[0]["alpha"] - got[1]["alpha"]).abs().max()) > 0.1
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit(card, packed):
+    """Every launch of a kernel on the same inputs gives the same bits: a
+    consumer warp that read a weight chunk before it had landed would not.
+    Enough tiles for several waves over the card's SMs."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    pts, pf = _inputs(400000, card, seed=5)
+    feats = torch.cat([pts, pf], -1)
+    first = None
+    for _ in range(4):
+        out = [*fq.warp_template_query(packed["offset"], packed["template"],
+                                       pts, pf).values(),
+               *fq.template_query(packed["template"], pts),
+               fq.offset_query(packed["offset"], feats)]
+        torch.cuda.synchronize()
+        if first is None:
+            first = out
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -192,9 +255,11 @@ def _rays(n, n_anchors, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_samples,n_anchors",
-                         [(1, 2, 2), (300, 5, 3), (2000, 64, 4)])
+                         [(1, 2, 2), (300, 5, 3), (2000, 64, 4),
+                          (333, 2, 16)])
 def test_k3_kernel_matches_plain(card, packed, n, n_samples, n_anchors):
-    """Ragged ray counts, and sample counts that do not divide the tile."""
+    """Ragged ray counts, sample counts that do not divide the tile, the
+    shortest ray (2 samples) and the widest anchor block (16)."""
     from avatarcap_tpu_torch.ops.fused_query import (ray_color_query,
                                                      ray_color_query_plain)
     args = _rays(n, n_anchors, card, seed=n)
