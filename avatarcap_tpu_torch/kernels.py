@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,6 +48,24 @@ def library_path(name: str) -> Path:
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def source_constants(*files: str) -> Dict[str, int]:
+    """The integer ``constexpr`` constants that the given ``csrc`` files
+    state, evaluated in order (each may use the ones before it); those of
+    a type size are left out. The tests hold the Python side's numbers to
+    them."""
+    env: Dict[str, int] = {}
+    for name in files:
+        text = (CSRC / name).read_text()
+        for key, expr in re.findall(
+                r"^constexpr (?:int|size_t) (k\w+) =\s*([^;]+);", text, re.M):
+            if "sizeof" in expr:
+                continue
+            # C++ integer division
+            env[key] = eval(expr.replace("/", "//"), {"__builtins__": {}},
+                            env)  # noqa: S307 (integer arithmetic only)
+    return env
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

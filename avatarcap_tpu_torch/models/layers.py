@@ -13,7 +13,8 @@ here:
   names ``weight_g`` (O, 1, 1) and ``weight_v`` (O, I, 1);
 - ``group_norm`` and ``upsample_bicubic_x2``: GroupNorm(32, C) and the
   x2 bicubic ``align_corners=True`` upsample of the hourglass;
-- ``f32_convolutions``: cuDNN convolutions in full float32.
+- ``f32_convolutions``: cuDNN convolutions in full float32, with
+  deterministic algorithms.
 """
 
 from __future__ import annotations
@@ -74,9 +75,13 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
 
 @contextlib.contextmanager
 def f32_convolutions():
-    """cuDNN convolutions in full float32 (cuDNN's default is TF32); the
-    other cuDNN flags stay as the caller set them."""
+    """cuDNN convolutions in full float32 (cuDNN's default is TF32) and
+    with deterministic algorithms, as the JAX package's one program is:
+    cuDNN's default pick for the U-Net's transposed convolutions is not,
+    and made the pose features, and through them the avatar mesh, differ
+    from run to run on the card. The other cuDNN flags stay as the caller
+    set them."""
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+                     deterministic=True, allow_tf32=False):
         yield

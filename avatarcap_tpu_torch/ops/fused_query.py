@@ -25,13 +25,12 @@ out); K2 387,072 FLOP against 136 B (33 f32 in, 1 f32 out); K3 ~1.97 MFLOP
 per sample against (6 + A) f32 + 128 bf16 in and 3 f32 out per ray. Each
 kernel keeps a 128-point (or 128-ray) tile's activations on chip across all
 its layers and runs every product on bf16 tensor cores with f32
-accumulators. K1, K3, K4 and K5 run on ``wgmma`` with the hidden
-activations in registers and take their weights as one image
-(``weight_image``: ~2 MB of 16-k chunks in the order and operand layout the
-kernels consume, built once per packed set) that a producer thread streams
-through a ring in shared memory; K2 keeps its activations in shared memory,
-runs on ``mma.sync`` and streams its packed weights (387 KB) from L2 (see the
-sources' headers).
+accumulators. All five run on ``wgmma`` and take their weights as one image
+of 16-k chunks in the order and operand layout the kernel consumes, built
+once per packed set (``weight_image``: ~2 MB for K1, K3, K4 and K5;
+``recon_weight_image``: 414 KB for K2), that a producer warpgroup streams
+through a ring in shared memory (csrc/chunk_ring.cuh; see the sources'
+headers).
 
 The contract of K1's two versions (the TPU kernel's rounding points):
 points rounded to bf16 only for the decoder input; the PE built from the
@@ -189,24 +188,44 @@ def _padded_columns(i: int, seg0: int, pad0: int, k_pad: int, device):
     return torch.where(zero, torch.full_like(col, -1), col)
 
 
-def _half_image(packed: Sequence[torch.Tensor], half: str):
-    wide, heads = _PLANS[half]
-    parts = []
-    for layer, o, i, seg0, pad0, k_pad in wide:
-        w = packed[2 * layer]
-        col = _padded_columns(i, seg0, pad0, k_pad, w.device)
-        w_pad = torch.where(col >= 0, w[:, col.clamp_min(0)],
-                            torch.zeros((), dtype=w.dtype, device=w.device))
-        # (O, k_pad) -> chunks of CHUNK_K columns, each as wgmma reads an
-        # unswizzled K-major operand: core matrices of 8 rows x 8 columns,
-        # stored [c][k / 8][n][k % 8]
-        parts.append(w_pad.reshape(o, k_pad // CHUNK_K, 2, 8)
-                     .permute(1, 2, 0, 3).reshape(-1))
-    parts += [packed[2 * layer].reshape(-1) for layer, _, _ in heads]
+def _pad_weight(w: torch.Tensor, seg0: int, pad0: int, k_pad: int
+                ) -> torch.Tensor:
+    """(O, I) weights -> (O, k_pad // CHUNK_K, 2, 8): zero-padded in K,
+    each chunk of CHUNK_K columns as two groups of 8."""
+    col = _padded_columns(w.shape[1], seg0, pad0, k_pad, w.device)
+    w_pad = torch.where(col >= 0, w[:, col.clamp_min(0)],
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+    return w_pad.reshape(w.shape[0], k_pad // CHUNK_K, 2, 8)
+
+
+def _unpad_weight(w_pad: torch.Tensor, i: int, seg0: int, pad0: int
+                  ) -> torch.Tensor:
+    """The inverse of _pad_weight: (O, k_pad // CHUNK_K, 2, 8) -> (O, i)."""
+    o, k_pad = w_pad.shape[0], w_pad[0].numel()
+    w_pad = w_pad.reshape(o, k_pad)
+    col = _padded_columns(i, seg0, pad0, k_pad, w_pad.device)
+    w = w_pad.new_zeros((o, i))
+    w[:, col[col >= 0]] = w_pad[:, col >= 0]
+    return w
+
+
+def _padded_biases(packed: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every layer's f32 bias in packed order, each padded to 4 floats."""
     biases = []
     for b in packed[1::2]:
         biases += [b, b.new_zeros((-b.numel()) % _BIAS_ALIGN)]
-    return torch.cat(parts), torch.cat(biases)
+    return torch.cat(biases)
+
+
+def _half_image(packed: Sequence[torch.Tensor], half: str):
+    wide, heads = _PLANS[half]
+    # each chunk as wgmma reads an unswizzled K-major operand: core
+    # matrices of 8 rows x 8 columns, stored [c][k / 8][n][k % 8]
+    parts = [_pad_weight(packed[2 * layer], seg0, pad0, k_pad)
+             .permute(1, 2, 0, 3).reshape(-1)
+             for layer, _, _, seg0, pad0, k_pad in wide]
+    parts += [packed[2 * layer].reshape(-1) for layer, _, _ in heads]
+    return torch.cat(parts), _padded_biases(packed)
 
 
 def weight_image(packed_offset: Optional[Sequence[torch.Tensor]] = None,
@@ -241,18 +260,83 @@ def unpack_weight_image(image: torch.Tensor, half: str
     wide, heads = _PLANS[half]
     out, pos = {}, 0
     for layer, o, i, seg0, pad0, k_pad in wide:
-        c = k_pad // CHUNK_K
-        w_pad = (image[pos:pos + o * k_pad].reshape(c, 2, o, 8)
-                 .permute(2, 0, 1, 3).reshape(o, k_pad))
+        w_pad = (image[pos:pos + o * k_pad]
+                 .reshape(k_pad // CHUNK_K, 2, o, 8).permute(2, 0, 1, 3))
         pos += o * k_pad
-        col = _padded_columns(i, seg0, pad0, k_pad, image.device)
-        w = image.new_zeros((o, i))
-        w[:, col[col >= 0]] = w_pad[:, col >= 0]
-        out[layer] = w
+        out[layer] = _unpad_weight(w_pad, i, seg0, pad0)
     for layer, o, i in heads:
         out[layer] = image[pos:pos + o * i].reshape(o, i)
         pos += o * i
     return [out[layer] for layer in sorted(out)]
+
+
+# The weight image of K2 (csrc/recon_decode.cu states the same numbers).
+# Each wide layer's (O, I) weights are zero-padded in K to the kernel's
+# input segments: x (33 columns) padded to RECON_X_COLS, and the [h, x]
+# concats as h (512 or 256) then x padded the same way; (seg0, pad0, k_pad)
+# as in _padded_columns.
+RECON_X_COLS = 48
+_RECON_PADS = ((33, 48, 48), (512, 512, 560), (256, 256, 304))
+
+
+def _recon_stream():
+    """[(layer, first output row, rows, k-chunk)] of K2's chunks in the
+    order the kernel takes them: for each of layer 0's four slices of 128
+    output columns its 3 chunks, then layer 1's 8 chunks over that slice of
+    h1; then layer 1's x segment (3 chunks) and layer 2 (19 chunks at
+    O = 128: h2, then x)."""
+    stream = []
+    for j in range(4):
+        stream += [(0, 128 * j, 128, c) for c in range(3)]
+        stream += [(1, 0, 256, 8 * j + c) for c in range(8)]
+    stream += [(1, 0, 256, c) for c in range(32, 35)]
+    stream += [(2, 0, 128, c) for c in range(304 // CHUNK_K)]
+    return stream
+
+
+RECON_CHUNKS = len(_recon_stream())                              # 66
+RECON_HEAD_ELEM = sum(o * k_pad for (o, _), (_, _, k_pad)
+                      in zip(RECON_SHAPES, _RECON_PADS))         # 206,848
+RECON_IMAGE_ELEMS = RECON_HEAD_ELEM + RECON_SHAPES[3][1]
+RECON_BIAS_FLOATS = sum(-(-o // _BIAS_ALIGN) * _BIAS_ALIGN
+                        for o, _ in RECON_SHAPES)                # 900
+
+
+def recon_weight_image(packed: Sequence[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's packed weights (pack_recon_weights) as the one buffer its
+    kernel streams (plain PyTorch, any device): (image, bias), 1-D bf16
+    and f32.
+
+    The image holds the RECON_CHUNKS chunks of _recon_stream in order, each
+    an (O rows x 16 k) block of a layer's zero-padded weights as
+    [k / 8][n][k % 8] (wgmma's unswizzled K-major core matrices), then the
+    (1, 128) head as it is; ``bias`` holds the four f32 biases in packed
+    order, each padded to 4 floats.
+    """
+    pads = [_pad_weight(w, *pad) for w, pad in zip(packed[0:6:2],
+                                                      _RECON_PADS)]
+    parts = [pads[layer][r0:r0 + o, c].permute(1, 0, 2).reshape(-1)
+             for layer, r0, o, c in _recon_stream()]
+    parts.append(packed[6].reshape(-1))
+    return torch.cat(parts), _padded_biases(packed)
+
+
+def unpack_recon_weight_image(image: torch.Tensor) -> List[torch.Tensor]:
+    """The four (O, I) weights read back from K2's image (the inverse of
+    ``recon_weight_image``)."""
+    pads = [image.new_zeros((o, k_pad // CHUNK_K, 2, 8))
+            for (o, _), (_, _, k_pad) in zip(RECON_SHAPES, _RECON_PADS)]
+    pos = 0
+    for layer, r0, o, c in _recon_stream():
+        pads[layer][r0:r0 + o, c] = (image[pos:pos + o * CHUNK_K]
+                                     .reshape(2, o, 8).permute(1, 0, 2))
+        pos += o * CHUNK_K
+    out = [_unpad_weight(w_pad, i, seg0, pad0) for w_pad, (_, i), (seg0, pad0, _)
+           in zip(pads, RECON_SHAPES, _RECON_PADS)]
+    o, i = RECON_SHAPES[3]
+    out.append(image[pos:pos + o * i].reshape(o, i))
+    return out
 
 
 # images of the packed sets seen lately: the key names each packed tensor's
@@ -269,25 +353,40 @@ def _tensor_version(t: torch.Tensor) -> int:
         return -1
 
 
-def _cached_weight_image(packed_offset, packed_template):
-    """``weight_image`` of the packed set(s), built once per set."""
-    tensors = tuple(packed_offset or ()) + tuple(packed_template or ())
-    key = (packed_offset is None, packed_template is None) + tuple(
-        (t.data_ptr(), _tensor_version(t)) for t in tensors)
+def _cached_image(build, kind, tensors: tuple, *args):
+    """``build(*args)`` for the packed tensors, built once per set and
+    kind; ``build.builds`` counts the builds."""
+    key = (kind,) + tuple((t.data_ptr(), _tensor_version(t))
+                          for t in tensors)
     hit = _IMAGES.get(key)
     if hit is None:
         with torch.no_grad():
-            hit = weight_image(packed_offset, packed_template) + (tensors,)
+            hit = build(*args) + (tensors,)
         _IMAGES[key] = hit
         while len(_IMAGES) > _MAX_IMAGES:
             _IMAGES.popitem(last=False)
-        weight_image.builds += 1
+        build.builds += 1
     else:
         _IMAGES.move_to_end(key)
     return hit[0], hit[1]
 
 
+def _cached_weight_image(packed_offset, packed_template):
+    """``weight_image`` of the packed set(s), built once per set."""
+    return _cached_image(
+        weight_image, ("chain", packed_offset is None,
+                       packed_template is None),
+        tuple(packed_offset or ()) + tuple(packed_template or ()),
+        packed_offset, packed_template)
+
+
+def _cached_recon_image(packed):
+    """``recon_weight_image`` of a packed set, built once per set."""
+    return _cached_image(recon_weight_image, "recon", tuple(packed), packed)
+
+
 weight_image.builds = 0
+recon_weight_image.builds = 0
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -466,13 +565,11 @@ def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
         raise ValueError(f"expected {2 * len(shapes)} packed tensors, "
                          f"got {len(packed)}")
     for (o, i), w, b in zip(shapes, packed[0::2], packed[1::2]):
-        # K2 reads weight rows of even length as 4-byte words
         if (w.dtype != torch.bfloat16 or tuple(w.shape) != (o, i)
-                or not w.is_contiguous() or w.device != device
-                or w.data_ptr() % 4):
-            raise ValueError(f"packed weight must be contiguous 4-byte "
-                             f"aligned bf16 ({o}, {i}) on {device}, got "
-                             f"{w.dtype} {tuple(w.shape)} on {w.device}")
+                or not w.is_contiguous() or w.device != device):
+            raise ValueError(f"packed weight must be contiguous bf16 "
+                             f"({o}, {i}) on {device}, got {w.dtype} "
+                             f"{tuple(w.shape)} on {w.device}")
         if (b.dtype != torch.float32 or tuple(b.shape) != (o,)
                 or not b.is_contiguous() or b.device != device):
             raise ValueError(f"packed bias must be contiguous f32 ({o},) on "
@@ -492,11 +589,6 @@ def _kernel_fns(name: str, prefix: str, launch_argtypes):
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
     return launch, err_str
-
-
-def _ptr_array(tensors: Sequence[torch.Tensor]):
-    """The tensors' device pointers as a C array (void *[])."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _raise_on(err: int, err_str, what: str) -> None:
@@ -581,12 +673,12 @@ def _recon_launch(packed, feats):
         return out
     launch, err_str = _kernel_fns(
         "recon_decode", "recon_decode",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-         ctypes.c_void_p, ctypes.c_void_p])
-    ptrs = _ptr_array(packed)
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    image, bias = _cached_recon_image(packed)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(feats.data_ptr(), n, ptrs, out.data_ptr(), stream)
+        err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), stream)
     _raise_on(err, err_str, "recon_decode")
     recon_decode.launches += 1
     return out

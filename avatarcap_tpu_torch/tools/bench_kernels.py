@@ -9,15 +9,27 @@ after a warm-up, the achieved TFLOP/s (2 x multiply-adds of the packed
 shapes), the bound (the larger of operations over the bf16 peak and bytes
 over the memory rate) and the bound's share of the measured time; and the
 largest difference from the plain PyTorch version on the first
-``--check`` points (rays) of the launch. Prints the card's name and power
-limit and, last, one JSON line. Raises without a CUDA device.
+``--check`` points (rays) of the launch; and a SHA-1 of the launch's
+outputs, which two trees' runs in one call compare for bit equality. K2's
+row also gives its weight image's bytes and build time, the bytes its
+tiles pull from L2 per launch (tiles x image bytes) and that pull's rate.
+Prints the card's name and power limit and, last, one JSON line. Raises
+without a CUDA device.
+
+With ``--waves``, also K2 alone at 33, 66, 132 and 264 tiles of 128
+points, launched from a CUDA graph (the wrapper's host time, ~60 us a
+call, would otherwise set the time of so short a launch): on the card's
+132 SMs, equal times up to 132 tiles (one wave) mean that a tile's time
+is set inside its SM, not by the L2 that all SMs share.
 
 Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,k3]
+       [--waves]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -87,6 +99,30 @@ def _max_err(got, ref) -> float:
     return max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
 
+def outputs_sha1(outputs) -> str:
+    """SHA-1 of the outputs' bytes, in order (equal hashes: equal bits)."""
+    h = hashlib.sha1()
+    for t in outputs:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def recon_image_record(fq, packed, tiles_by_launch):
+    """K2's weight image: its bytes and build time (CUDA events around one
+    build after a warm-up), and per launch the bytes its tiles pull from
+    L2 (each 128-point tile streams the whole image). None where the
+    package has no K2 image."""
+    build = getattr(fq, "recon_weight_image", None)
+    if build is None:
+        return None
+    image, bias = build(packed)
+    ms = event_ms(lambda: build(packed), 1)
+    nbytes = image.numel() * image.element_size()
+    return {"bytes": nbytes, "bias_bytes": bias.numel() * 4, "build_ms": ms,
+            "l2_bytes": {k: t * nbytes for k, t in tiles_by_launch.items()}}
+
+
 def _ray_inputs(n, n_anchors, device, gen):
     base = torch.rand((n, 3), generator=gen) * 1.2 - 0.6
     nrm = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen),
@@ -98,7 +134,37 @@ def _ray_inputs(n, n_anchors, device, gen):
                                    bounds)]
 
 
-def bench(only, reps: int, check: int, seed: int):
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps launches captured in one CUDA
+    graph and replayed (no host time between launches), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k2_waves(fq, packed, device, gen, reps: int) -> dict:
+    """ms of one K2 launch at 33, 66, 132 and 264 tiles of 128 points."""
+    out = {}
+    for tiles in (33, 66, 132, 264):
+        feats = torch.randn((tiles * 128, fq.RECON_IN_DIM),
+                            generator=gen).to(device)
+        out[tiles] = graph_ms(lambda: fq.recon_decode(packed, feats), reps)
+    return out
+
+
+def bench(only, reps: int, check: int, seed: int, waves: bool = False):
     from avatarcap_tpu_torch.ops import fused_query as fq
     from avatarcap_tpu_torch.pipeline.avatar import pack_fused_query_weights
     from avatarcap_tpu_torch.tools.bench_workloads import (random_avatar,
@@ -129,6 +195,8 @@ def bench(only, reps: int, check: int, seed: int):
                                  launch_bound(n, fq.MACS_PER_POINT,
                                               3 * 4 + 64 * 2 + 8 * 4,
                                               _weight_bytes(off + tpl)), err))
+                rows[-1]["sha1"] = outputs_sha1(
+                    fq.warp_template_query(off, tpl, p, f).values())
         if "k4" in only:
             p = pts[:K45_POINTS]
             err = _max_err(fq.template_query(tpl, p[:check]),
@@ -139,6 +207,7 @@ def bench(only, reps: int, check: int, seed: int):
                                           fq.TEMPLATE_MACS_PER_POINT,
                                           3 * 4 + 5 * 4, _weight_bytes(tpl)),
                              err))
+            rows[-1]["sha1"] = outputs_sha1(fq.template_query(tpl, p))
         if "k5" in only:
             feats = torch.cat([pts[:K45_POINTS], pf[:K45_POINTS]], -1)
             err = _max_err([fq.offset_query(off, feats[:check])],
@@ -149,8 +218,11 @@ def bench(only, reps: int, check: int, seed: int):
                                           fq.OFFSET_MACS_PER_POINT,
                                           fq.OFFSET_IN_DIM * 4 + 3 * 4,
                                           _weight_bytes(off)), err))
+            rows[-1]["sha1"] = outputs_sha1([fq.offset_query(off, feats)])
         del pts, pf
         if "k2" in only:
+            image = recon_image_record(
+                fq, pk_recon, {k: -(-n // 128) for k, n in K2_POINTS.items()})
             for launch, n in K2_POINTS.items():
                 feats = torch.randn((n, fq.RECON_IN_DIM), generator=gen).to(dev)
                 err = _max_err([fq.recon_decode(pk_recon, feats[:check])],
@@ -161,6 +233,16 @@ def bench(only, reps: int, check: int, seed: int):
                                  launch_bound(n, fq.RECON_MACS_PER_POINT,
                                               fq.RECON_IN_DIM * 4 + 4,
                                               _weight_bytes(pk_recon)), err))
+                rows[-1]["sha1"] = outputs_sha1([fq.recon_decode(pk_recon,
+                                                                 feats)])
+                if image is not None:
+                    l2 = image["l2_bytes"][launch]
+                    rows[-1].update(image_bytes=image["bytes"],
+                                    image_build_ms=image["build_ms"],
+                                    l2_bytes=l2,
+                                    l2_tb_per_s=l2 / (ms * 1e-3) / 1e12)
+            if waves:
+                rows[-1]["waves_ms"] = k2_waves(fq, pk_recon, dev, gen, reps)
         if "k3" in only:
             kw = dict(n_samples=K3_SAMPLES, near=0.98, far=1.05,
                       threshold=0.08)
@@ -181,6 +263,8 @@ def bench(only, reps: int, check: int, seed: int):
                                                   per_ray / K3_SAMPLES,
                                                   _weight_bytes(off + tpl)),
                                  err))
+                rows[-1]["sha1"] = outputs_sha1(
+                    [fq.ray_color_query(off, tpl, *rays, **kw)])
     return rows
 
 
@@ -193,19 +277,27 @@ def main(argv=None) -> int:
                     help="points held against the plain version (K3: a "
                          "sixteenth as many rays)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--waves", action="store_true",
+                    help="also time K2 at 33, 66, 132 and 264 tiles")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_kernels times the CUDA kernels: it needs "
                            "an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    rows = bench(set(args.only.split(",")), args.reps, args.check, args.seed)
+    rows = bench(set(args.only.split(",")), args.reps, args.check, args.seed,
+                 args.waves)
     smi = gpu_name_and_power_limit()
     for r in rows:
+        l2 = (f"  L2 {r['l2_tb_per_s']:.2f} TB/s" if "l2_tb_per_s" in r
+              else "")
         print(f"{r['name']:>20} {r['launch']:>7} {r['points']:>10} pts  "
               f"{r['ms']:9.3f} ms  {r['tflops']:6.1f} TFLOP/s  bound "
               f"{r['bound_ms']:7.3f} ms ({100 * r['share_of_bound']:4.1f}%)  "
-              f"err {r['max_abs_err']:.3e}")
+              f"err {r['max_abs_err']:.3e}  sha1 {r['sha1'][:12]}{l2}")
+        if "waves_ms" in r:
+            print("    K2 ms at " + ", ".join(
+                f"{t} tiles {ms:.4f}" for t, ms in r["waves_ms"].items()))
     print(smi)
     print(json.dumps({"gpu": smi, "peak_bf16_tflops": PEAK_BF16_FLOPS / 1e12,
                       "seconds": time.perf_counter() - t0, "kernels": rows}))

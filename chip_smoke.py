@@ -28,10 +28,17 @@ Phases, each fatal on failure:
      w_nerf=False, ...): a warm-up frame, whose merged normals give the
      inputs of the two K2 (recon_decode) launches, recorded through the
      same recon_volume the frame runs; K2 held against its plain version
-     on them and timed; then two timed frames with the launch counts read
-     around each (2 K1 and 2 K2 launches), whose triangle counts are
-     compared (run-to-run drift), two more with
-     torch.backends.cudnn.deterministic = True, and the stage times;
+     on them and timed, beside its weight image's bytes and build time and
+     the bytes its tiles pull from L2; then two timed frames with the
+     launch counts read around each (2 K1 and 2 K2 launches), whose
+     triangle counts are compared (run-to-run drift), two more with
+     torch.backends.cudnn.deterministic = True, and the stage times. The
+     drift phase runs the frame's avatar stages (pose features, the grid's
+     pose feature columns, coarse field, refine set, refine field, fine
+     volume, mesh, skinned mesh) through the frame's own stage functions
+     before and after those frames, hashes each stage's output bits (and
+     each U-Net module's output) and names the first stage that differs;
+     the hashes and the default runs' triangle counts must agree;
   6. the textured production frame, process_frame(item, w_recon=True,
      w_nerf=True, ...): a warm-up frame, whose meshes give the inputs of
      the two K3 (ray_color_query) launches (the avatar's unique vertices
@@ -441,13 +448,26 @@ def check_k2(capture, recorded, device):
 
     coarse = measure(recorded[0])
     refine = measure(recorded[-1])
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    from avatarcap_tpu_torch.tools.bench_kernels import recon_image_record
+    image = recon_image_record(fq, pk, {"coarse": -(-coarse["points"] // 128),
+                                        "refine": -(-refine["points"] // 128)})
+    for launch, rec in (("coarse", coarse), ("refine", refine)):
+        rec["l2_bytes"] = image["l2_bytes"][launch]
+        rec["l2_tb_per_s"] = rec["l2_bytes"] / (rec["ms"] * 1e-3) / 1e12
+    print(f"[k2] weight image {image['bytes']} B + {image['bias_bytes']} B "
+          f"of biases, built in {image['build_ms']:.3f} ms; L2 pull "
+          f"{coarse['l2_tb_per_s']:.2f} TB/s coarse, "
+          f"{refine['l2_tb_per_s']:.2f} TB/s refine")
     # the kernel table reports the coarse launch, the larger of the two
     return {"name": "recon_decode", "route": "cuda",
             "source": "avatarcap_tpu_torch/csrc/recon_decode.cu",
             "replaces": "avatarcap_tpu/ops/pallas_query.py:239",
             "max_abs_err": err, "median_abs_err": median,
             "tolerance": {"max": K2_TOL, "median": K2_MEDIAN_TOL},
-            **coarse, "library_ms": None, "refine_launch": refine}
+            **coarse, "library_ms": None, "refine_launch": refine,
+            "weight_image": {k: image[k] for k in ("bytes", "bias_bytes",
+                                                   "build_ms")}}
 
 
 def production_frames(capture, item, recon_kw, device):
@@ -459,10 +479,84 @@ def production_frames(capture, item, recon_kw, device):
     return check_k2(capture, recorded, device)
 
 
+def stage_hashes(capture, item):
+    """SHA-1 of the output bits of each avatar stage of the production
+    frame, run through the frame's own stage functions on the item, in
+    order; and of each U-Net module's output inside the pose features."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
+    from avatarcap_tpu_torch.pipeline.avatar import (compute_pose_features,
+                                                     grid_pose_features)
+    from avatarcap_tpu_torch.pipeline.capture import (_extract_mesh,
+                                                      hierarchical_volume)
+    from avatarcap_tpu_torch.tools.bench_kernels import outputs_sha1
+    dev = capture.device
+    g, st, o = capture.grid, capture.statics, capture.opt
+    pk = capture.packed_query
+    modules, fields = [], []
+
+    def hook(name):
+        def record(module, args, out):
+            if isinstance(out, torch.Tensor):
+                modules.append((name, outputs_sha1([out])))
+        return record
+
+    handles = [m.register_forward_hook(hook(name))
+               for name, m in capture.avatar.named_modules() if name]
+    try:
+        with torch.inference_mode():
+            pos_map = torch.as_tensor(item["smpl_pos_map"],
+                                      dtype=torch.float32).to(dev)[None]
+            feat = compute_pose_features(capture.avatar, pos_map)
+    finally:
+        for h in handles:
+            h.remove()
+    with torch.inference_mode():
+        cols = grid_pose_features(feat, st, g.vol_res, dtype=torch.bfloat16,
+                                  columns=True)
+
+        def vf(pts, fidx):
+            occ = warp_template_query(pk["offset"], pk["template"], pts,
+                                      cols[fidx.long() // g.vol_res[2]]
+                                      )["occ"][:, 0]
+            fields.append((fidx, occ))
+            return occ
+
+        vol, _, n_r = hierarchical_volume(
+            vf, g, st.cano_bounds, g.c_prior, g.prior_volume, o.iso_value,
+            o.hier_alpha, o.refine_capacity, with_stats=True)
+        mesh = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
+                             o.max_active)
+        jnt = torch.as_tensor(item["cano2live_jnt_mats"],
+                              dtype=torch.float32).to(dev)
+        live, _ = capture.skinning_stage(mesh, jnt)
+    stages = {"pose_features": [feat], "grid_pose_features": [cols],
+              "coarse_field": [fields[0][1]],
+              "refine_set": [fields[1][0], n_r],
+              "refine_field": [fields[1][1]], "fine_volume": [vol],
+              "mesh": [mesh.vertices, mesh.normals, mesh.num_tris],
+              "skinned_mesh": [live.vertices, live.normals]}
+    return {"stages": {k: outputs_sha1(v) for k, v in stages.items()},
+            "unet_modules": modules, "num_tris": int(mesh.num_tris),
+            "refined_nodes": int(n_r)}
+
+
+def first_difference(a, b):
+    """The first stage (and U-Net module) whose hashes differ between two
+    stage_hashes runs, or None."""
+    stage = next((k for k in a["stages"]
+                  if a["stages"][k] != b["stages"][k]), None)
+    module = next((na for (na, ha), (_, hb) in zip(a["unet_modules"],
+                                                   b["unet_modules"])
+                   if ha != hb), None)
+    return {"stage": stage, "unet_module": module}
+
+
 def timed_production_frames(capture, item, recon_kw, device):
     """Two timed frames, their drift, two more with deterministic cuDNN,
-    and the stage times."""
+    and the stage times; the avatar stages' hashes before and after."""
     import torch
+    hashes = [stage_hashes(capture, item)]
     frames = []
     for deterministic in (False, False, True, True):
         torch.backends.cudnn.deterministic = deterministic
@@ -475,6 +569,7 @@ def timed_production_frames(capture, item, recon_kw, device):
                 "+ refine)")
         frames.append(rec)
     torch.backends.cudnn.deterministic = False
+    hashes.append(stage_hashes(capture, item))
 
     def same(a, b):
         return (a["num_tris"] == b["num_tris"]
@@ -482,8 +577,24 @@ def timed_production_frames(capture, item, recon_kw, device):
 
     out = dict(frames[0])
     out["runs"] = frames
+    diff = first_difference(*hashes)
     out["drift"] = {"default_runs_agree": same(frames[0], frames[1]),
-                    "deterministic_runs_agree": same(frames[2], frames[3])}
+                    "deterministic_runs_agree": same(frames[2], frames[3]),
+                    "first_differing": diff,
+                    "stage_hashes": [h["stages"] for h in hashes],
+                    "stage_num_tris": [h["num_tris"] for h in hashes],
+                    "stage_refined_nodes": [h["refined_nodes"]
+                                            for h in hashes]}
+    for i, h in enumerate(hashes):
+        print(f"[drift] run {i}: " + " ".join(
+            f"{k}={v[:10]}" for k, v in h["stages"].items())
+            + f" tris={h['num_tris']} refined={h['refined_nodes']}")
+    print(f"[drift] first stage whose hashes differ between the runs: "
+          f"{diff['stage']} (U-Net module: {diff['unet_module']}); frame "
+          f"triangles {[f['num_tris'] for f in frames]}")
+    if diff["stage"] is not None or not out["drift"]["default_runs_agree"]:
+        raise AssertionError(f"the production frame's avatar stages differ "
+                             f"from run to run: {out['drift']}")
     out["stages"] = stage_times(capture, item, device, w_recon=True,
                                 **recon_kw)
     return out

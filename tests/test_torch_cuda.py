@@ -114,24 +114,45 @@ def test_two_packed_sets_in_a_row(card, packed):
 
 
 @pytest.mark.cuda
-def test_kernels_repeat_bit_for_bit(card, packed):
+def test_kernels_repeat_bit_for_bit(card, packed, packed_recon):
     """Every launch of a kernel on the same inputs gives the same bits: a
     consumer warp that read a weight chunk before it had landed would not.
     Enough tiles for several waves over the card's SMs."""
     from avatarcap_tpu_torch.ops import fused_query as fq
     pts, pf = _inputs(400000, card, seed=5)
     feats = torch.cat([pts, pf], -1)
+    recon_feats = torch.randn((400000, 33),
+                              generator=torch.Generator().manual_seed(6))
+    recon_feats = recon_feats.to(card)
     first = None
     for _ in range(4):
         out = [*fq.warp_template_query(packed["offset"], packed["template"],
                                        pts, pf).values(),
                *fq.template_query(packed["template"], pts),
-               fq.offset_query(packed["offset"], feats)]
+               fq.offset_query(packed["offset"], feats),
+               fq.recon_decode(packed_recon, recon_feats)]
         torch.cuda.synchronize()
         if first is None:
             first = out
         for a, b in zip(out, first):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pose_features_repeat_bit_for_bit(card):
+    """The U-Net's pose features at the capture size (256^2 x 6) are the
+    same bits on every call: the avatar mesh of two frames drifted while
+    cuDNN ran a non-deterministic transposed convolution."""
+    from avatarcap_tpu_torch.pipeline.avatar import compute_pose_features
+    from avatarcap_tpu_torch.tools.bench_workloads import random_avatar
+    gen = torch.Generator().manual_seed(9)
+    model = random_avatar(gen).to(card)
+    pos_map = (torch.randn((1, 256, 256, 6), generator=gen) * 0.1).to(card)
+    with torch.inference_mode():
+        first = compute_pose_features(model, pos_map)
+        for _ in range(3):
+            torch.empty(1 << 26, device=card)      # another memory state
+            assert torch.equal(compute_pose_features(model, pos_map), first)
 
 
 @pytest.mark.cuda
@@ -152,9 +173,11 @@ def test_k1_empty_and_invalid_inputs(card, packed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 300, 5000])
+@pytest.mark.parametrize("n", [1, 128, 129, 300, 5000, 200003])
 def test_k2_kernel_matches_plain(card, packed_recon, n):
-    """Ragged point counts (the kernel's tile is 128 points)."""
+    """One tile, one tile and a point, ragged and large ragged point counts
+    (the kernel's tile is 128 points); the flips stay rare: the median
+    difference stays within 1e-4."""
     from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
                                                      recon_decode_plain)
     gen = torch.Generator().manual_seed(n)
@@ -166,6 +189,30 @@ def test_k2_kernel_matches_plain(card, packed_recon, n):
     ref = recon_decode_plain(packed_recon, feats)
     assert got.shape == (n,) and got.device.type == "cuda"
     torch.testing.assert_close(got, ref, atol=K2_ATOL, rtol=0)
+    assert float((got - ref).abs().median()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_two_packed_recon_sets_in_a_row(card, packed_recon):
+    """K2 launches in a row on one stream with two packed sets: each runs
+    on its own weight image, built once per set."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    from avatarcap_tpu_torch.tools.bench_workloads import random_recon
+    model = random_recon(torch.Generator().manual_seed(7)).to(card)
+    with torch.no_grad():
+        other = fq.pack_recon_weights(model.image_decoder)
+    feats = torch.randn((3000, 33),
+                        generator=torch.Generator().manual_seed(8)).to(card)
+    builds = fq.recon_weight_image.builds
+    got = [fq.recon_decode(pk, feats)
+           for pk in (packed_recon, other, packed_recon, other)]
+    torch.cuda.synchronize()
+    assert fq.recon_weight_image.builds <= builds + 2
+    for g, pk in zip(got, (packed_recon, other, packed_recon, other)):
+        torch.testing.assert_close(g, fq.recon_decode_plain(pk, feats),
+                                   atol=K2_ATOL, rtol=0)
+    # the two sets differ, so a stale image would show
+    assert float((got[0] - got[1]).abs().max()) > 1e-2
 
 
 @pytest.mark.cuda

@@ -124,17 +124,10 @@ def test_wrapper_rejects_other_devices(weights):
 # ---- the weight image of K1, K3, K4 and K5 --------------------------------
 
 def _cuh_constants():
-    """The integer constants csrc/warp_template_core.cuh states, evaluated
-    in order (each may use the ones before it)."""
-    import re
-    from avatarcap_tpu_torch.kernels import CSRC
-    text = (CSRC / "warp_template_core.cuh").read_text()
-    env = {}
-    for name, expr in re.findall(
-            r"^constexpr (?:int|size_t) (k\w+) =\s*([^;]+);", text, re.M):
-        if "sizeof" not in expr:
-            env[name] = eval(expr, {}, env)  # noqa: S307 (arithmetic only)
-    return env
+    """The integer constants csrc/chunk_ring.cuh and
+    csrc/warp_template_core.cuh state."""
+    from avatarcap_tpu_torch.kernels import source_constants
+    return source_constants("chunk_ring.cuh", "warp_template_core.cuh")
 
 
 def test_weight_image_constants_match_cuh():

@@ -229,3 +229,22 @@ def test_grid_pose_features(env, mode):
     atol = 2e-2 if mode == "columns_bf16" else 1e-5
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref).astype(np.float32), atol=atol)
+
+
+def test_f32_convolutions_flags():
+    """Inside the port's convolution context cuDNN runs in full float32
+    with deterministic algorithms (a non-deterministic transposed
+    convolution made the card's pose features drift from run to run); the
+    caller's other flags pass through and every flag is restored after."""
+    from avatarcap_tpu_torch.models.layers import f32_convolutions
+    cudnn = torch.backends.cudnn
+    before = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+              cudnn.allow_tf32)
+    with cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                     allow_tf32=True):
+        with f32_convolutions():
+            assert cudnn.deterministic and not cudnn.allow_tf32
+            assert cudnn.enabled and cudnn.benchmark
+        assert not cudnn.deterministic and cudnn.allow_tf32
+    assert (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+            cudnn.allow_tf32) == before

@@ -213,3 +213,141 @@ def test_recon_wrapper_rejects_other_devices(env):
         tp = tpack(port.image_decoder)
     with pytest.raises(ValueError):
         recon_decode(tp, torch.zeros((4, 33), device="meta"))
+
+
+# ---- the weight image of K2 ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def packed(env):
+    from avatarcap_tpu_torch.ops.fused_query import pack_recon_weights
+    _, _, port, _ = env
+    with torch.no_grad():
+        return pack_recon_weights(port.image_decoder)
+
+
+def test_recon_image_constants_match_cu():
+    from avatarcap_tpu_torch.kernels import source_constants
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    k = source_constants("chunk_ring.cuh", "recon_decode.cu")
+    assert k["kChunkK"] == fq.CHUNK_K == 16
+    assert k["kXCols"] == fq.RECON_X_COLS == 48
+    assert k["kReconHeadElem"] == fq.RECON_HEAD_ELEM == 206848
+    assert k["kReconImageElems"] == fq.RECON_IMAGE_ELEMS
+    assert k["kReconBiasFloats"] == fq.RECON_BIAS_FLOATS == 900
+    # the stream as the kernel's producer sends it: per slice of layer 0,
+    # 3 chunks of 4 KB (O = 128) and 8 of 8 KB (O = 256); layer 1's x
+    # segment; layer 2's 19 chunks of 4 KB
+    sizes = [o * fq.CHUNK_K * 2 for _, _, o, _ in fq._recon_stream()]
+    runs = ([3 * [4096] + k["kSliceChunks"] * [8192]] * k["kSlices"]
+            + [k["kXChunks"] * [8192], (k["kH2Chunks"] + 3) * [4096]])
+    assert sizes == sum(runs, []) and len(sizes) == fq.RECON_CHUNKS == 66
+    assert sum(sizes) == 2 * fq.RECON_HEAD_ELEM == 413696
+    assert max(sizes) == k["kStageBytes"]
+
+
+def test_recon_image_sizes_and_inverse(packed):
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    image, bias = fq.recon_weight_image(packed)
+    assert image.dtype == torch.bfloat16 and bias.dtype == torch.float32
+    assert image.numel() == fq.RECON_IMAGE_ELEMS and 2 * image.numel() == 413952
+    assert bias.numel() == fq.RECON_BIAS_FLOATS
+    for w, back in zip(packed[0::2], fq.unpack_recon_weight_image(image)):
+        assert back.shape == w.shape and torch.equal(back, w)
+    # biases: packed order, each padded to 4 floats
+    pos = 0
+    for b in packed[1::2]:
+        assert torch.equal(bias[pos:pos + b.numel()], b)
+        pos += -(-b.numel() // 4) * 4
+        assert not bias[pos - (-b.numel()) % 4:pos].any()
+    assert pos == bias.numel()
+
+
+def _recon_chunks(image):
+    """(layer, first row, rows, k-chunk, (rows, 16) block) of each chunk,
+    decoded as the tensor core reads it: two groups of 8 k, each `rows`
+    rows of 8 contiguous bf16."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    pos = 0
+    for layer, r0, o, c in fq._recon_stream():
+        chunk = image[pos:pos + o * 16].reshape(2, o, 8)
+        yield layer, r0, o, c, torch.cat([chunk[0], chunk[1]], dim=1)
+        pos += o * 16
+
+
+def test_recon_image_pad_columns_are_zero(packed):
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    image, _ = fq.recon_weight_image(packed)
+    seen = 0
+    for layer, _, _, c, block in _recon_chunks(image):
+        # the x segment's last chunk: k 32-47 of layer 0, and of the x
+        # segments after h1 (512) and h2 (256); x has 33 columns
+        if (layer, c) in ((0, 2), (1, 34), (2, 18)):
+            assert not block[:, 1:].any() and block[:, 0].any()
+            seen += 1
+        else:
+            assert block.abs().sum(1).all()
+    assert seen == 6                     # layer 0 comes in four slices
+
+
+def test_recon_image_walk_matches_plain(packed):
+    """K2 as its kernel walks the image: chunk after chunk in the stream's
+    order, bf16 operands, f32 sums. Each chunk may only read activations
+    whose layer sums are complete by then; each layer's sums agree with the
+    direct product to f32 rounding, and the output with the plain version
+    where the chunked summation order flips no bf16 rounding."""
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    image, bias = fq.recon_weight_image(packed)
+    bf = torch.bfloat16
+    rs = np.random.RandomState(11)
+    feats = torch.as_tensor(rs.standard_normal((40, 33)).astype(np.float32))
+    n = feats.shape[0]
+    x = feats.to(bf)
+    xp = torch.zeros((n, fq.RECON_X_COLS), dtype=bf)
+    xp[:, :33] = x
+    b = [bias[0:512], bias[512:768], bias[768:896], bias[896:897]]
+    widths = (512, 256, 128)
+    acc = [torch.zeros((n, o)) for o in widths]
+    steps = [torch.zeros(o, dtype=torch.long) for o in widths]
+    k_steps = (3, 35, 19)
+
+    def act(layer, cols):
+        """bf16(leaky(sums + b)) of finished columns of a layer."""
+        assert (steps[layer][cols] == k_steps[layer]).all(), (layer, cols)
+        return fq._leaky(acc[layer][:, cols] + b[layer][cols]).to(bf)
+
+    for layer, r0, o, c, block in _recon_chunks(image):
+        if layer == 0:
+            a = xp[:, 16 * c:16 * c + 16]
+        else:
+            hw = widths[layer - 1]
+            a = (act(layer - 1, slice(16 * c, 16 * c + 16)) if 16 * c < hw
+                 else xp[:, 16 * c - hw:16 * c - hw + 16])
+        acc[layer][:, r0:r0 + o] += a.float() @ block.float().T
+        steps[layer][r0:r0 + o] += 1
+    h = [act(layer, slice(None)) for layer in range(3)]
+    ins = [x, torch.cat([h[0], x], -1), torch.cat([h[1], x], -1)]
+    for layer in range(3):
+        direct = fq._dot(packed[2 * layer], ins[layer], packed[2 * layer + 1])
+        torch.testing.assert_close(acc[layer] + b[layer], direct, atol=1e-5,
+                                   rtol=1e-5)
+    head = image[fq.RECON_HEAD_ELEM:].reshape(1, 128)
+    occ = torch.sigmoid(fq._dot(head, h[2], b[3]))[:, 0]
+    d = (occ - fq.recon_decode_plain(packed, feats)).abs()
+    assert float(d.median()) <= 1e-6 and float(d.max()) <= K2_ATOL
+
+
+def test_recon_image_built_once_per_packed_set(packed):
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    before = fq.recon_weight_image.builds
+    a = fq._cached_recon_image(packed)
+    b = fq._cached_recon_image(packed)
+    assert a[0] is b[0] and fq.recon_weight_image.builds == before + 1
+    # another packed set, or an updated one, gets its own image
+    other = tuple(t.clone() for t in packed)
+    c = fq._cached_recon_image(other)
+    assert c[0] is not a[0] and fq.recon_weight_image.builds == before + 2
+    other[0].mul_(2.0)
+    d = fq._cached_recon_image(other)
+    assert fq.recon_weight_image.builds == before + 3
+    assert not torch.equal(c[0], d[0])
+    assert torch.equal(a[0], c[0])
