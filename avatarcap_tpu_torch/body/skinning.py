@@ -1,6 +1,6 @@
-"""Forward linear blend skinning for capture (counterpart of
-avatarcap_tpu/body/skinning.py: the flat ``mats16`` helpers and the
-volume-accelerated KNN-Gaussian LBS).
+"""Forward linear blend skinning (counterpart of
+avatarcap_tpu/body/skinning.py: ``blend_joint_mats``, ``skin_points``, the
+flat ``mats16`` helpers and the volume-accelerated KNN-Gaussian LBS).
 
 Per-point matrices stay flat, (N, 16) row-major with channel 4 r + c =
 mat[r, c], as in the JAX package.
@@ -19,6 +19,22 @@ def blend_joint_mats16(lbs: torch.Tensor, jnt_mats: torch.Tensor
     """(N, J) x (J, 4, 4) -> (N, 16) flat per-point affine mats."""
     J = jnt_mats.shape[-3]
     return lbs @ jnt_mats.reshape(J, 16)
+
+
+def blend_joint_mats(lbs: torch.Tensor, jnt_mats: torch.Tensor
+                     ) -> torch.Tensor:
+    """(..., N, J) x (..., J, 4, 4) -> (..., N, 4, 4) per-point affine
+    mats."""
+    J = jnt_mats.shape[-3]
+    m16 = lbs @ jnt_mats.reshape(jnt_mats.shape[:-3] + (J, 16))
+    return m16.reshape(m16.shape[:-1] + (4, 4))
+
+
+def skin_points(points: torch.Tensor, lbs: torch.Tensor,
+                jnt_mats: torch.Tensor) -> torch.Tensor:
+    """Forward-skin (N, 3) points with (N, J) blend weights and (J, 4, 4)
+    joint transforms: the blended flat mats applied to each point."""
+    return mats16_apply_points(blend_joint_mats16(lbs, jnt_mats), points)
 
 
 def mats16_apply_points(m16: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """SMPL forward kinematics + LBS (counterpart of avatarcap_tpu/body/smpl.py:
-``SmplParams``, ``smpl_forward``, ``canonical_pose``).
+``SmplParams``, ``smpl_forward``, ``smpl_forward_batch``,
+``canonical_pose``).
 
 Pose layout: 75-d = [trans (3), 24 x axis-angle (3)]. Joint 0's local
 translation is the global translation, not t + (I - R) j0 (a reference
@@ -89,3 +90,11 @@ def smpl_forward(params: SmplParams, pose: torch.Tensor,
              + vert_mats[:, :3, 3])
     return SmplOutput(posed, posed_joints, jnt_mats, vert_mats, shaped,
                       joints)
+
+
+def smpl_forward_batch(params: SmplParams, poses: torch.Tensor,
+                       shape: torch.Tensor) -> SmplOutput:
+    """smpl_forward of each of (B, 75) poses with one (S,) shape; every
+    field gains a leading batch axis."""
+    outs = [smpl_forward(params, pose, shape) for pose in poses]
+    return SmplOutput(*(torch.stack(field) for field in zip(*outs)))

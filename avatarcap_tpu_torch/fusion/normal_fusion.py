@@ -8,9 +8,10 @@ avatarcap_tpu/fusion/normal_fusion.py: ``lift_image_normals``,
   image normals there and rotates them back to canonical space.
 - The merge is the reference's two-phase optimisation: 50 Adam steps
   (lr 1e-2) on a 64 x 64 axis-angle rotation grid, then 50 (lr 1e-1) on
-  the normal image, under ``torch.autograd``. The Adam step is written
-  out in optax's order, so the 100-step trajectory stays close to the JAX
-  package's. Then the distance-transform blend and the face box.
+  the normal image, under ``torch.autograd``. The Adam step
+  (ops/adam.py) is optax's order of operations, so the 100-step
+  trajectory stays close to the JAX package's. Then the
+  distance-transform blend and the face box.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from avatarcap_tpu_torch.body.skinning import mats16_inv_rotate
+from avatarcap_tpu_torch.ops.adam import Adam
 from avatarcap_tpu_torch.ops.morphology import distance_transform_l1, erode_3x3
 from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
 from avatarcap_tpu_torch.render.raster import rasterize
@@ -133,36 +135,6 @@ def _neighbor_shift(img: torch.Tensor, di: int, dj: int) -> torch.Tensor:
     return shift_axis(out, 1, axis_indices(W, dj, H))
 
 
-class _Adam:
-    """optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8 added after the
-    bias-corrected sqrt, eps_root 0), in optax's order of operations. The
-    bias corrections 1 - b^t (optax raises the float32 b to the step count)
-    are filled on the device, so a step makes no host-device copy."""
-
-    def __init__(self, param: torch.Tensor, lr: float):
-        self.lr = lr
-        self.mu = torch.zeros_like(param)
-        self.nu = torch.zeros_like(param)
-        self.count = 0
-
-    def _correction(self, b: float, like: torch.Tensor) -> torch.Tensor:
-        # 1 - b^t in float32, as optax computes it, filled into a 0-d
-        # tensor on the device: a true division, where a Python scalar
-        # divisor would become a multiply by its reciprocal
-        c = np.float32(1) - np.float32(b) ** np.float32(self.count)
-        return torch.full((), float(c), dtype=like.dtype, device=like.device)
-
-    def step(self, param: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-        b1, b2 = 0.9, 0.999
-        self.mu = (1 - b1) * grad + b1 * self.mu
-        self.nu = (1 - b2) * grad ** 2 + b2 * self.nu
-        self.count += 1
-        mu_hat = self.mu / self._correction(b1, param)
-        nu_hat = self.nu / self._correction(b2, param)
-        update = mu_hat / (torch.sqrt(nu_hat) + 1e-8)
-        return param + (-self.lr) * update
-
-
 def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
                         neck_xy: Sequence[int],
                         iter_num: int = 100) -> torch.Tensor:
@@ -211,18 +183,18 @@ def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
 
         rot_aa = torch.zeros((64, 64, 3), dtype=src_img.dtype,
                              device=src_img.device)
-        opt = _Adam(rot_aa, 1e-2)
+        opt = Adam([rot_aa])
         for _ in range(iter_num // 2):
             rot_aa.requires_grad_(True)
             g, = torch.autograd.grad(loss_fn(rot_aa, src_img), rot_aa)
-            rot_aa = opt.step(rot_aa.detach(), g)
+            rot_aa, = opt.step([rot_aa.detach()], [g], 1e-2)
 
         src = src_img.detach()          # a new leaf: src_img keeps no grad
-        opt = _Adam(src, 1e-1)
+        opt = Adam([src])
         for _ in range(iter_num - iter_num // 2):
             src.requires_grad_(True)
             g, = torch.autograd.grad(loss_fn(rot_aa, src), src)
-            src = opt.step(src.detach(), g)
+            src, = opt.step([src.detach()], [g], 1e-1)
 
         # distance-transform blending
         dtw = (dt / 5.0)[..., None]

@@ -4,12 +4,15 @@
 Module names are the reference torch names (``cano_template.shared_mlp``,
 ``warping_field.unet``, ``warping_field.out_layer_coord_affine``, ...), so a
 reference checkpoint loads with ``load_state_dict`` (see weights.py).
-Run it in ``eval()``: the warp field's BatchNorms then use running stats.
+Capture runs it in ``eval()`` (the warp field's BatchNorms use their
+running statistics); training runs it in ``train()``.
 
 The configuration is the reference's capture one, fixed: template PE(10)
 in SDF mode, no PE on the warp field's point input (kernel K1 bakes in the
-same widths). The JAX GeoHead is the torch reference's
-``geo_mlp = MLP(256, 2, (128,), leaky)`` and OutOffsetHead its
+same widths). The occupancy form (``if_type="occupancy"``, a sigmoid on
+the geometry head) is not ported: GeoTexAvatar raises for it. The JAX
+GeoHead is the torch reference's ``geo_mlp = MLP(256, 2, (128,), leaky)``
+and OutOffsetHead its
 ``out_layer_coord_affine`` Conv1d; both keep the reference's U(+-1e-5)
 output init.
 """
@@ -23,7 +26,8 @@ from avatarcap_tpu_torch.models.layers import PointConv1d
 from avatarcap_tpu_torch.models.mlp import MLP, OffsetDecoder
 from avatarcap_tpu_torch.models.unets import UnetNoCond7DS
 from avatarcap_tpu_torch.ops.embed import embed_dim, positional_encoding
-from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
+from avatarcap_tpu_torch.ops.grid_sample import (grid_sample_3d,
+                                                 sample_feature_map_at_points)
 
 TEMPLATE_FREQS = 10
 POSE_FEAT_DIM = 64
@@ -77,18 +81,37 @@ class WarpingField(nn.Module):
     def forward(self, pts: torch.Tensor, pose_feat_map: torch.Tensor,
                 cano_smpl_center: torch.Tensor) -> torch.Tensor:
         """pts (B, N, 3), pose_feat_map (B, H, W, C) NHWC,
-        cano_smpl_center (B, 3) -> offsets (B, N, 3)."""
-        pts_c = pts - cano_smpl_center[:, None, :]
+        cano_smpl_center (B, 3) -> offsets (B, N, 3). The fetch's grid
+        coordinates carry no gradient, as in the reference."""
+        pts_c = (pts - cano_smpl_center[:, None, :]).detach()
         pose_feat = sample_feature_map_at_points(
             pose_feat_map.permute(0, 3, 1, 2), pts_c)
         h = self.mlp(torch.cat([pts, pose_feat], dim=-1))
         return self.out_layer_coord_affine(h)
 
 
+def sample_weight_volume(weight_volume: torch.Tensor,
+                         pts01: torch.Tensor) -> torch.Tensor:
+    """Trilinear LBS weight fetch: (X, Y, Z, J) canonical blend-weight
+    volume at (B, N, 3) points normalised to [0, 1] in the canonical
+    bounds -> (B, N, J). The grid's (x, y, z) index the volume's (W, H, D)
+    = (Z, Y, X), so the points go in as [z, y, x]: world x indexes the
+    volume's X axis."""
+    B, N, _ = pts01.shape
+    vol = weight_volume.permute(3, 0, 1, 2)[None]          # (1, J, X, Y, Z)
+    grid = (2.0 * pts01 - 1.0)[..., [2, 1, 0]].reshape(1, 1, 1, B * N, 3)
+    w = grid_sample_3d(vol, grid)                          # (1, J, 1, 1, BN)
+    return w[0, :, 0, 0].reshape(-1, B, N).permute(1, 2, 0)
+
+
 class GeoTexAvatar(nn.Module):
     """Template + warp field (the reference's ``network`` module)."""
 
-    def __init__(self):
+    def __init__(self, if_type: str = "sdf"):
+        if if_type != "sdf":
+            raise NotImplementedError(
+                f"if_type={if_type!r}: the port's GeoTexAvatar has the SDF "
+                "geometry head only")
         super().__init__()
         self.cano_template = DoubleTNet()
         self.warping_field = WarpingField()

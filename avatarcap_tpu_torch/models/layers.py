@@ -11,6 +11,8 @@ here:
 - ``WeightNormPointConv1d``: the same layer under the reference's
   ``torch.nn.utils.weight_norm`` (dim 0), with the reference's parameter
   names ``weight_g`` (O, 1, 1) and ``weight_v`` (O, I, 1);
+- ``BatchNorm1d`` and ``BatchNorm2d``: the stock modules with the
+  running variance of the JAX package's flax BatchNorm in training mode;
 - ``group_norm`` and ``upsample_bicubic_x2``: GroupNorm(32, C) and the
   x2 bicubic ``align_corners=True`` upsample of the hourglass;
 - ``f32_convolutions``: cuDNN convolutions in full float32, with
@@ -59,6 +61,38 @@ class WeightNormPointConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.folded_weight(), self.bias)
+
+
+class _FlaxRunningStats:
+    """Training-mode BatchNorm whose running statistics are flax's
+    (avatarcap_tpu/models/layers.py: BatchNorm, momentum 0.9, eps 1e-5):
+    ``running = 0.9 running + 0.1 batch`` with the BIASED batch variance,
+    where torch stores the unbiased one (n / (n - 1) larger: 16/15 in the
+    U-Net's 2 x 2 blocks at batch 4). The output is normalised with the
+    biased batch variance, as both do. Eval mode, the state-dict keys and
+    ``num_batches_tracked`` are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    """nn.BatchNorm1d with flax's running statistics in training mode."""
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's running statistics in training mode."""
 
 
 def group_norm(channels: int) -> nn.GroupNorm:

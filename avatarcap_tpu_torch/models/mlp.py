@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avatarcap_tpu_torch.models.layers import (PointConv1d,
+from avatarcap_tpu_torch.models.layers import (BatchNorm1d, PointConv1d,
                                                WeightNormPointConv1d)
 
 
@@ -72,7 +72,7 @@ class OffsetDecoder(nn.Module):
             if i == 5:
                 cin = in_channels + hsize
             setattr(self, f"conv{i}", PointConv1d(cin, hsize))
-            setattr(self, f"bn{i}", nn.BatchNorm1d(hsize, eps=1e-5))
+            setattr(self, f"bn{i}", BatchNorm1d(hsize, eps=1e-5))
 
     def _block(self, i: int, h: torch.Tensor) -> torch.Tensor:
         h = getattr(self, f"conv{i}")(h)

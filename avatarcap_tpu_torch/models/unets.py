@@ -8,7 +8,11 @@ dead ``upconv4`` parameters are not created here; weights.py lists them as
 the keys to drop when loading a reference checkpoint.
 
 Tensors are NCHW inside; the public pipeline functions keep the JAX
-package's NHWC layout.
+package's NHWC layout. In training mode every BatchNorm updates its
+running statistics as flax does (models/layers.BatchNorm2d), ``upconv3``'s
+twice per forward, in order. A 64^2 input map leaves conv7 with nothing
+to convolve; the blocks then give what XLA's convolutions give (an empty
+bottleneck, then zeros), where torch's would raise.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from avatarcap_tpu_torch.models.layers import BatchNorm2d
 
 
 class Conv2DBlock(nn.Module):
@@ -26,11 +32,16 @@ class Conv2DBlock(nn.Module):
         super().__init__()
         self.use_relu = use_relu
         self.conv = nn.Conv2d(in_nc, out_nc, 4, 2, 1, bias=False)
-        self.bn = nn.BatchNorm2d(out_nc, affine=False) if use_bn else None
+        self.bn = BatchNorm2d(out_nc, affine=False) if use_bn else None
 
     def forward(self, x):
         if self.use_relu:
             x = F.leaky_relu(x, 0.2)
+        if min(x.shape[-2:]) + 2 < 4:
+            # the padded input is smaller than the kernel: XLA's
+            # convolution gives an empty output (the JAX U-Net on a 64^2
+            # map reaches conv7 at 1 x 1), where torch's raises
+            return x.new_zeros(x.shape[:1] + (self.conv.out_channels, 0, 0))
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
@@ -52,10 +63,19 @@ class UpConv2DBlock(nn.Module):
                 nn.Upsample(scale_factor=2, mode="bilinear",
                             align_corners=False),
                 nn.Conv2d(in_nc, out_nc, 3, 1, 1, bias=True))
-        self.bn = nn.BatchNorm2d(out_nc, affine=False) if use_bn else None
+        self.bn = BatchNorm2d(out_nc, affine=False) if use_bn else None
 
     def forward(self, x, skip=None):
-        x = self.up(F.relu(x))
+        if x.shape[-1] == 0:
+            # XLA's transposed convolution of an empty input is one pixel
+            # of padding only: the bias, or 0
+            conv = self.up if isinstance(self.up, nn.ConvTranspose2d) \
+                else self.up[1]
+            x = x.new_zeros(x.shape[:1] + (conv.out_channels, 1, 1))
+            if conv.bias is not None:
+                x = x + conv.bias[None, :, None, None]
+        else:
+            x = self.up(F.relu(x))
         if self.bn is not None:
             x = self.bn(x)
         if skip is not None:

@@ -1,5 +1,6 @@
 """Brute-force K nearest neighbors (counterpart of avatarcap_tpu/ops/knn.py:
-``knn``, ``approx_lbs_weights`` and the near-body distance volume).
+``knn``, ``knn_gather``, ``approx_lbs_weights`` and the near-body distance
+volume).
 Distances are squared L2, computed as |q|^2 - 2 q.v + |v|^2 with one f32
 matmul per query chunk.
 """
@@ -35,6 +36,11 @@ def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
         dists.append(d.clamp_min(0.0))
         idxs.append(i)
     return torch.cat(dists), torch.cat(idxs)
+
+
+def knn_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather (M, C) values at (N, K) indices -> (N, K, C)."""
+    return values[idx]
 
 
 def approx_lbs_weights(points: torch.Tensor, smpl_vertices: torch.Tensor,

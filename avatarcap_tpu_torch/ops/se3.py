@@ -1,5 +1,5 @@
 """Rotation math (counterpart of avatarcap_tpu/ops/se3.py:
-``axis_angle_to_matrix``)."""
+``axis_angle_to_matrix`` and ``rigid_inverse``)."""
 
 from __future__ import annotations
 
@@ -28,3 +28,13 @@ def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
     KK = aa[..., :, None] * aa[..., None, :] - theta2[..., None] * eye
     return (eye + sin_over[..., None, None] * K
             + one_minus_cos_over[..., None, None] * KK)
+
+
+def rigid_inverse(mats: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 4, 4) rigid transforms: inv([R t; 0 1]) =
+    [R^T -R^T t; 0 1], without a general solve."""
+    Rt = mats[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([Rt, -(Rt @ mats[..., :3, 3:])], dim=-1)   # (..., 3, 4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=mats.dtype,
+                          device=mats.device).expand(top[..., :1, :].shape)
+    return torch.cat([top, bottom], dim=-2)

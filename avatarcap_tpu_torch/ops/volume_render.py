@@ -56,19 +56,22 @@ def linspace01(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
 
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
                       perturb: bool,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      t_rand: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Sample depths along rays, (..., R) -> (..., R, S): linspace(near,
-    far) per ray, jittered within each sample's bin when ``perturb`` and a
-    generator are given (uniform draws from ``generator``)."""
+    far) per ray, jittered within each sample's bin when ``perturb`` and
+    either the uniform draws themselves (``t_rand``, shaped like the
+    result) or a generator to draw them from is given."""
     t = linspace01(n_samples, near.dtype, near.device)
     z_vals = near[..., None] * (1.0 - t) + far[..., None] * t
-    if perturb and generator is not None:
+    if perturb and (t_rand is not None or generator is not None):
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = torch.rand(z_vals.shape, generator=generator,
-                            dtype=z_vals.dtype, device=generator.device)
+        if t_rand is None:
+            t_rand = torch.rand(z_vals.shape, generator=generator,
+                                dtype=z_vals.dtype, device=generator.device)
         z_vals = lower + (upper - lower) * t_rand.to(z_vals.device)
     return z_vals
 

@@ -24,7 +24,6 @@ Not ported yet (they raise ``NotImplementedError``): the ``mc_edge`` and
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -54,7 +53,7 @@ from avatarcap_tpu_torch.ops.volume_render import linspace01
 from avatarcap_tpu_torch.pipeline.avatar import (
     NEAR_SMPL_DIST, AvatarStatics, FrameInputs, compute_pose_features,
     grid_pose_features, pack_fused_query_weights, query_occupancy,
-    render_rays)
+    render_rays, stage)
 from avatarcap_tpu_torch.render.camera import (
     cano_front_back_mvp, gl_perspective_projection_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
@@ -269,11 +268,6 @@ def _knn_chunk(database: torch.Tensor) -> int:
     """Query chunk of a KNN against ``database`` that keeps its (chunk, M)
     distance tile at 2^26 floats."""
     return max(1, min(16384, (1 << 26) // max(1, database.shape[0])))
-
-
-def _stage(timer, name: str):
-    """``timer(name)``, a context manager around one stage, or nothing."""
-    return timer(name) if timer is not None else contextlib.nullcontext()
 
 
 def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
@@ -635,10 +629,10 @@ class AvatarCapture:
         and the recon soup is deduped). ``timer`` (see process_frame) sees
         "hgfilter" and "recon_query_mc"."""
         o = self.opt
-        with _stage(timer, "hgfilter"):
+        with stage(timer, "hgfilter"):
             feat_map = self.recon.get_feat_maps(
                 torch.cat([front_normal, back_normal], dim=-1)[None])
-        with _stage(timer, "recon_query_mc"):
+        with stage(timer, "recon_query_mc"):
             vol, q_ovf = self.recon_volume(feat_map)
             mesh = _extract_mesh(vol, self.grid, self.statics.cano_bounds,
                                  0.5, o.recon_max_tris or o.max_tris,
@@ -872,25 +866,25 @@ class AvatarCapture:
                 cano2live_jnt_mats=tensor(item["cano2live_jnt_mats"])[None],
                 smpl_pos_map=tensor(item["smpl_pos_map"])[None])
             jnt_mats = frame.cano2live_jnt_mats[0]
-            with _stage(timer, "geometry"):
+            with stage(timer, "geometry"):
                 cano_mesh, feat = self.avatar_geometry_stage(
                     frame, want_edge_ids=w_nerf)
-            with _stage(timer, "skinning"):
+            with stage(timer, "skinning"):
                 live_mesh, pt_mats = self.skinning_stage(cano_mesh, jnt_mats)
             if w_recon:
                 # lift the image normals before the canonical layers, so
                 # their interpolation joins the shared attribute table
-                with _stage(timer, "lift"):
+                with stage(timer, "lift"):
                     proj_n_tris, lift_ovf = self.lift_normals_stage(
                         live_mesh, cano_mesh.valid, pt_mats,
                         tensor(inferred_normal), tensor(item["w2c_RT"]),
                         camera)
-                with _stage(timer, "cano_layers"):
+                with stage(timer, "cano_layers"):
                     (fri, bri, front_avatar_n, back_avatar_n, phong,
                      front_img_n, _) = self.cano_layers_stage(
                         cano_mesh, extra_tri_attrs=proj_n_tris)
             else:
-                with _stage(timer, "cano_layers"):
+                with stage(timer, "cano_layers"):
                     (fri, bri, front_avatar_n, back_avatar_n,
                      phong) = self.cano_layers_stage(cano_mesh)
             overflow = cano_mesh.overflow | fri.overflow | bri.overflow
@@ -899,7 +893,7 @@ class AvatarCapture:
                        "front_avatar_normal": front_avatar_n,
                        "back_avatar_normal": back_avatar_n}
             if w_recon:
-                with _stage(timer, "merge"):
+                with stage(timer, "merge"):
                     if o.integrate_manner == "merge":
                         front_merged = merge_normal_images(
                             front_avatar_n, front_img_n,
@@ -912,7 +906,7 @@ class AvatarCapture:
                 recon_mesh = self.recon_stage(front_merged, back_avatar_n,
                                               timer=timer,
                                               want_edge_ids=w_nerf)
-                with _stage(timer, "recon_skinning"):
+                with stage(timer, "recon_skinning"):
                     live_recon, _ = self.skinning_stage(recon_mesh, jnt_mats)
                 overflow = overflow | lift_ovf | recon_mesh.overflow
                 results.update({"front_merged_normal": front_merged,
@@ -920,14 +914,14 @@ class AvatarCapture:
                                 "recon_mesh": recon_mesh,
                                 "live_recon_mesh": live_recon})
             if w_nerf:
-                with _stage(timer, "nerf_colors"):
+                with stage(timer, "nerf_colors"):
                     colors, nerf_ovf, uniq = self.nerf_color_stage(
                         feat, cano_mesh)
                 # BGR -> RGB, as the reference's vertex colors
                 results["avatar_colors"] = colors.flip(-1)
                 overflow = overflow | nerf_ovf
                 if w_recon:
-                    with _stage(timer, "color_transfer"):
+                    with stage(timer, "color_transfer"):
                         recon_colors, xfer_ovf = self.color_transfer_stage(
                             feat, recon_mesh, cano_mesh.vertices,
                             results["avatar_colors"], uniq)

@@ -1,13 +1,15 @@
-"""Full-size capture subject on the toy body (counterpart of
-avatarcap_tpu/tools/bench_workloads.py:22-106 and :286-424:
+"""Full-size workloads on the toy body (counterpart of
+avatarcap_tpu/tools/bench_workloads.py:22-106, :286-424 and :427-470:
 ``toy_avatar_statics``, ``build_capture_grid``, the networks, the capture
-options and the frame's camera inputs).
+options, the frame's camera inputs and ``build_train_env``).
 
 The capture workload of the repo: a 384 x 384 x 128 canonical grid
 (~18.9 M nodes) over the toy body densified to 6,752 vertices (real SMPL
 has 6,890; KNN cost scales with the vertex count), GeoTexAvatar and
 ReconNet at their published widths with random weights, and the JAX
-bench's capture camera.
+bench's capture camera. The training workload: a batch of 4 items of
+1,024 rays x 64 samples and 5,000 + 312 geometry points each, on a
+256^2 x 6 position map.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ import torch
 import torch.nn as nn
 
 from avatarcap_tpu_torch.body.smpl import canonical_pose, smpl_forward
+from avatarcap_tpu_torch.device import resolve_device
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
 from avatarcap_tpu_torch.models.layers import WeightNormPointConv1d
 from avatarcap_tpu_torch.models.recon import ReconNetwork
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
 from avatarcap_tpu_torch.ops.knn import knn
+from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
 from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
 from avatarcap_tpu_torch.pipeline.capture import CaptureGrid
 from avatarcap_tpu_torch.utils.toy_body import make_toy_smpl_params
@@ -202,3 +206,82 @@ def build_capture_grid(statics: AvatarStatics,
     valid_pts = torch.where(live[:, None], pts[idx.long()],
                             torch.zeros((), device=dev))
     return CaptureGrid(valid_pts, valid_idx, prior, tuple(vol_res)), n_valid
+
+
+def train_batch(params, cano_v: np.ndarray, center: np.ndarray,
+                batch_size: int = 4, n_rays: int = 1024, n_surf: int = 5000,
+                n_vol: int = 312, pos_map_res: int = 256,
+                posed: bool = False, seed: int = 0):
+    """The training batch of the JAX package's build_train_env as numpy
+    arrays, drawn from np.random.RandomState(seed) in its order: random
+    position maps, canonical points within 0.3 m of the body center with
+    SDF targets in [-0.1, 0.1], random colors, and rays along +z from 2 m
+    in front of the center. The joint mats are the identity; ``posed``
+    replaces them (after those draws) with seeded rigid transforms, a
+    rotation of up to 0.3 rad about a random axis and a shift of up to
+    5 cm per joint, and poses the live vertices with them, so that
+    inverse skinning has work to do."""
+    J = params.num_joints
+    B, R, NPTS = batch_size, n_rays, n_surf + n_vol
+    rng = np.random.RandomState(seed)
+    batch = {
+        "live_smpl_v": np.tile(cano_v[None], (B, 1, 1)).astype(np.float32),
+        "cano2live_jnt_mats": np.tile(np.eye(4, dtype=np.float32),
+                                      (B, J, 1, 1)),
+        "smpl_pos_map": rng.standard_normal(
+            (B, pos_map_res, pos_map_res, 6)).astype(np.float32) * 0.1,
+        "cano_pts": (center + rng.uniform(
+            -0.3, 0.3, (B, NPTS, 3))).astype(np.float32),
+        "cano_pts_ov": rng.uniform(-0.1, 0.1, (B, NPTS)).astype(np.float32),
+        "rgb": rng.uniform(0, 1, (B, R, 3)).astype(np.float32),
+        "ray_o": np.tile((center + [0, 0, -2.0]).astype(np.float32),
+                         (B, R, 1)),
+        "ray_d": np.tile(np.array([0, 0, 1], np.float32), (B, R, 1)),
+        "near": np.full((B, R), 1.5, np.float32),
+        "far": np.full((B, R), 2.5, np.float32),
+        "depth": np.zeros((B, R), np.float32),
+    }
+    if posed:
+        axis = rng.standard_normal((B, J, 3))
+        axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+        angle = rng.uniform(-0.3, 0.3, (B, J, 1))
+        rot = axis_angle_to_matrix(torch.as_tensor(axis * angle)).numpy()
+        mats = np.tile(np.eye(4), (B, J, 1, 1))
+        mats[:, :, :3, :3] = rot
+        mats[:, :, :3, 3] = rng.uniform(-0.05, 0.05, (B, J, 3))
+        mats = mats.astype(np.float32)
+        vmats = (params.weights @ mats.reshape(B, J, 16)).reshape(
+            B, -1, 4, 4)
+        batch["cano2live_jnt_mats"] = mats
+        batch["live_smpl_v"] = (
+            np.einsum("bvxy,vy->bvx", vmats[..., :3, :3], cano_v)
+            + vmats[..., :3, 3]).astype(np.float32)
+    return batch
+
+
+def build_train_env(batch_size: int = 4, n_rays: int = 1024,
+                    n_samples: int = 64, n_surf: int = 5000,
+                    n_vol: int = 312, pos_map_res: int = 256,
+                    dense: bool = True, posed: bool = False, seed: int = 0,
+                    device=None, net_ckpt_dir: str = "train_ckpt"):
+    """The repo's training-step workload (the JAX package's
+    build_train_env): GeoTexAvatar at its published widths
+    (random_avatar from torch.Generator(seed), in training mode), the toy
+    body (densified with ``dense``) and its statics, the batch of
+    train_batch as tensors on ``device`` (the card unless the caller
+    names the CPU), and an AvatarTrainer with its initial state.
+    Returns dict(trainer, state, batch, statics, model, params)."""
+    from avatarcap_tpu_torch.train.trainer import AvatarTrainer
+    device = resolve_device(device)
+    params, statics, v = toy_avatar_statics(dense=dense)
+    model = random_avatar(torch.Generator().manual_seed(seed))
+    center = statics.cano_smpl_center.numpy()
+    batch = train_batch(params, v, center, batch_size, n_rays, n_surf,
+                        n_vol, pos_map_res, posed, seed)
+    trainer = AvatarTrainer(statics=statics, net_ckpt_dir=net_ckpt_dir,
+                            n_samples=n_samples, device=device)
+    state = trainer.init_state(model)
+    return {"trainer": trainer, "state": state, "model": model,
+            "batch": {k: torch.from_numpy(a).to(device)
+                      for k, a in batch.items()},
+            "statics": trainer.statics, "params": params}

@@ -60,7 +60,6 @@ a CUDA device, without the package next to it, or on any failed phase.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -90,23 +89,6 @@ def _sync(device):
     import torch
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class StageClock:
-    """``timer`` for process_frame: synchronised seconds of each stage."""
-
-    def __init__(self, device):
-        self.device = device
-        self.seconds = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        _sync(self.device)
-        t0 = time.perf_counter()
-        yield
-        _sync(self.device)
-        self.seconds[name] = (self.seconds.get(name, 0.0)
-                              + time.perf_counter() - t0)
 
 
 def measure_launch(kernel, plain, n, macs_per_point, bytes_per_point,
@@ -390,6 +372,7 @@ def run_frame(capture, item, device, w_nerf=False, **frame_kw):
 
 def stage_times(capture, item, device, w_nerf=False, **frame_kw):
     """Synchronised seconds of each stage of one frame."""
+    from avatarcap_tpu_torch.tools.bench_train import StageClock
     clock = StageClock(device)
     capture.process_frame(item, w_nerf=w_nerf, timer=clock, **frame_kw)
     return clock.seconds
@@ -917,6 +900,10 @@ def main() -> int:
 
     record["small_frame"] = check_small_frame(device)
     print(f"[small] {json.dumps(record['small_frame'])}")
+
+    from avatarcap_tpu_torch.tools import bench_train
+    record["train"] = bench_train.run(device)
+    print(f"[train] {json.dumps(record['train'])}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",

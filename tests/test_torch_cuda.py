@@ -350,3 +350,40 @@ def test_k3_k4_k5_empty_and_invalid_inputs(card, packed):
                        rays[0])
     with pytest.raises(ValueError):
         offset_query(packed["offset"], torch.zeros((10, 66), device=card))
+
+
+@pytest.fixture(scope="module")
+def train_env(card):
+    from avatarcap_tpu_torch.tools.bench_train import SMALL
+    from avatarcap_tpu_torch.tools.bench_workloads import build_train_env
+    return build_train_env(device=card, **SMALL)
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(card):
+    """A small train step (batch 2, 32 rays x 8 samples, 128^2 maps) on
+    the card and on the CPU from one state_dict with the same jitter:
+    losses, gradients and parameters after the step within the
+    tolerances of tools/bench_train (it raises otherwise)."""
+    from avatarcap_tpu_torch.tools.bench_train import (CPU_GRAD_RTOL,
+                                                       card_against_cpu)
+    rec = card_against_cpu(card)
+    assert rec["grad_rel_err_whole"] <= CPU_GRAD_RTOL
+
+
+@pytest.mark.cuda
+def test_epoch0_freeze_on_card(card, train_env):
+    """lrs [1e-3, 0]: the warp field's parameters keep their bits, the
+    template's and the BatchNorm statistics move."""
+    from avatarcap_tpu_torch.tools.bench_train import epoch0_policy
+    rec = epoch0_policy(train_env, card)
+    assert rec["warp_params_bit_equal"] > 0
+
+
+@pytest.mark.cuda
+def test_finetune_keeps_warp_on_card(card, train_env):
+    """Two finetune steps: the warp field's parameters keep their bits,
+    the template's move, the losses stay finite."""
+    from avatarcap_tpu_torch.tools.bench_train import finetune_steps
+    rec = finetune_steps(train_env, card)
+    assert len(rec["step_ms"]) == 2

@@ -255,7 +255,7 @@ def test_render_rays_matches_jax(env):
     with torch.no_grad():
         got = tav.avatar_forward(env["port"], _t(pts), _t(dists), tfeat,
                                  env["tstatics"], pts_space="temp")
-        with pytest.raises(NotImplementedError, match="training"):
+        with pytest.raises(ValueError, match="frame"):   # posed: no frame
             tav.avatar_forward(env["port"], _t(pts), _t(dists), tfeat,
                                env["tstatics"], pts_space="posed")
     np.testing.assert_allclose(got["raw"].numpy(), np.asarray(ref["raw"]),
