@@ -13,8 +13,10 @@ Ported so far: the capture frame,
 ``pipeline.capture.AvatarCapture.process_frame`` (avatar geometry, normal
 fusion, ReconNet, NeRF vertex colors; kernels K1-K5), and avatar training:
 ``train.trainer.AvatarTrainer`` (train step, ``fit``),
-``train.finetune.finetune_texture_template`` and the training dataset
-``data.dataset.AvatarCapDataset``.
+``train.finetune.finetune_texture_template`` and the dataset
+``data.dataset.AvatarCapDataset`` (training and test mode), and the
+command line: ``cli`` (``python -m avatarcap_tpu_torch.cli -c <cfg> -m
+{train,test}``), ``config``, ``tools.gen_synthetic``.
 """
 
 from avatarcap_tpu_torch.device import resolve_device  # noqa: F401

@@ -1,6 +1,6 @@
 """SMPL forward kinematics + LBS (counterpart of avatarcap_tpu/body/smpl.py:
-``SmplParams``, ``smpl_forward``, ``smpl_forward_batch``,
-``canonical_pose``).
+``SmplParams`` with its pkl reader, ``smpl_forward``,
+``smpl_forward_batch``, ``canonical_pose``).
 
 Pose layout: 75-d = [trans (3), 24 x axis-angle (3)]. Joint 0's local
 translation is the global translation, not t + (I - R) j0 (a reference
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pickle
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +39,29 @@ class SmplParams:
     @property
     def num_joints(self) -> int:
         return self.weights.shape[1]
+
+    @staticmethod
+    def load(pkl_path: str) -> "SmplParams":
+        """Read an official SMPL pkl (latin1; the sparse J_regressor made
+        dense)."""
+        with open(pkl_path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        j_reg = data["J_regressor"]
+        if hasattr(j_reg, "toarray"):
+            j_reg = j_reg.toarray()
+        v_template = np.asarray(data["v_template"], np.float32)
+        vnum = v_template.shape[0]
+        return SmplParams(
+            v_template=v_template,
+            faces=np.asarray(data["f"], np.int32),
+            joints_template=np.asarray(data["J"], np.float32),
+            kintree_parents=np.asarray(data["kintree_table"], np.int64)
+            .T[:, 0].astype(np.int32),
+            weights=np.asarray(data["weights"], np.float32),
+            j_regressor=np.asarray(j_reg, np.float32),
+            shapedirs=np.asarray(data["shapedirs"], np.float32)
+            .reshape(vnum * 3, -1),
+        )
 
 
 class SmplOutput(NamedTuple):

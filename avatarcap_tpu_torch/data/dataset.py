@@ -1,5 +1,5 @@
-"""AvatarCap training dataset (counterpart of avatarcap_tpu/data/dataset.py,
-training mode; the reference's dataset/avatarcap_dataset.py).
+"""AvatarCap dataset (counterpart of avatarcap_tpu/data/dataset.py; the
+reference's dataset/avatarcap_dataset.py), in training and test mode.
 
 The same on-disk layout (dataConfig.yaml, smpl/pose_*.txt, smpl/shape.txt,
 smpl/smpl_pos_map_*.exr, imgs/..., cano_pts_ov/*.npz) and the same item
@@ -8,8 +8,12 @@ JAX package's numpy RandomState calls in its order, so one seed gives the
 same rays and points on both sides. The SMPL forward kinematics runs once
 per pose in torch on the host CPU and is cached.
 
-Test mode (the inference grid with its inside prior, which needs
-ops/inside.py) is not ported yet: ``training=False`` raises.
+Test mode builds the subject's canonical query grid once, on a device
+(the card unless the caller names the CPU): the full grid, the near-body
+band (within 10 cm of a canonical SMPL vertex), the inside / outside prior
+of every other node from the ray-parity inside test, and the band's nodes
+compacted in ascending order and padded to a multiple of 65,536 with the
+out-of-range index.
 """
 
 from __future__ import annotations
@@ -33,10 +37,14 @@ from avatarcap_tpu_torch.body.smpl import (  # noqa: E402
 from avatarcap_tpu_torch.data.image_io import load_float_image  # noqa: E402
 from avatarcap_tpu_torch.data.ray_sampling import sample_rays  # noqa: E402
 from avatarcap_tpu_torch.device import resolve_device  # noqa: E402
+from avatarcap_tpu_torch.ops.inside import points_inside_mesh  # noqa: E402
+from avatarcap_tpu_torch.ops.knn import knn  # noqa: E402
 
 SAMPLED_RAY_NUM = 1024       # reference dataset/avatarcap_dataset.py:239
 SURFACE_PTS_PER_ITEM = 5000  # reference :285
 VOLUME_PTS_PER_ITEM = SURFACE_PTS_PER_ITEM // 16  # reference :286
+NEAR_BODY_DIST = 0.1         # the test grid's band, reference :114
+GRID_PAD = 65536             # the compacted band's padding multiple
 
 # per-pose arrays device_batches keeps on the device and gathers by pose
 _PER_POSE = ("smpl_pos_map", "smpl_pose", "live_smpl_v",
@@ -57,12 +65,12 @@ def _fork_getitem(index: int, seed: int, light: bool):
 
 
 class AvatarCapDataset:
+    """``training=False`` builds the test grid at ``vol_res`` on ``device``
+    (None = the card; raises without one); training mode reads neither."""
+
     def __init__(self, data_dir: str, training: bool,
-                 smpl_params: SmplParams, training_data_ids=None):
-        if not training:
-            raise NotImplementedError(
-                "AvatarCapDataset(training=False): the test-mode grid (and "
-                "ops/inside.py) is not ported yet")
+                 smpl_params: SmplParams, vol_res=(384, 384, 128),
+                 training_data_ids=None, device=None):
         self.data_dir = data_dir
         self.training = training
         self.smpl_params = smpl_params
@@ -139,6 +147,10 @@ class AvatarCapDataset:
         self.img_w = cam["img_width"]
         self.img_h = cam["img_height"]
 
+        if not training:
+            self._init_test_grid(vol_res, resolve_device(device))
+            return
+
         if training_data_ids is not None:
             ids = set(int(i) for i in np.atleast_1d(training_data_ids))
             self.smpl_pose_list = [
@@ -168,6 +180,42 @@ class AvatarCapDataset:
                                      torch.from_numpy(self.smpl_shape))
         return (out.vertices.numpy(), out.joints.numpy(),
                 out.jnt_affine_mats.numpy())
+
+    def _init_test_grid(self, vol_res, device: torch.device):
+        """The full static grid, its near-body flags, the inside prior of
+        the other nodes and the compacted band (the reference's :109-125,
+        static-shape form), as tensors on ``device``."""
+        self.vol_res = tuple(int(r) for r in vol_res)
+        lin = [np.linspace(0, 1, r, dtype=np.float32) for r in self.vol_res]
+        bounds = torch.from_numpy(self.cano_bounds).to(device)
+        g = torch.stack(torch.meshgrid(
+            *[torch.from_numpy(x).to(device) for x in lin], indexing="ij"),
+            dim=-1).reshape(-1, 3)
+        pts = g * (bounds[1] - bounds[0]) + bounds[0]
+        del g
+        verts = torch.from_numpy(self.cano_smpl_v).to(device)
+        d2, _ = knn(pts, verts, k=1, chunk=GRID_PAD)
+        self.infer_pts_flag = d2[:, 0] < NEAR_BODY_DIST ** 2
+        del d2
+        self.infer_pts = pts                  # full grid, masked downstream
+        tris = verts[torch.from_numpy(
+            np.asarray(self.smpl_params.faces, np.int64)).to(device)]
+        inside = points_inside_mesh(pts, tris)
+        # occupancy in [-1, 1] (reference :124): +1 inside, -1 outside
+        self.invalid_pts_ov = 2.0 * inside.float() - 1.0
+        idx = torch.nonzero(self.infer_pts_flag)[:, 0]
+        n = idx.shape[0]
+        pad = (-n) % GRID_PAD
+        self.valid_pts_idx = torch.cat([
+            idx.to(torch.int32),
+            torch.full((pad,), pts.shape[0], dtype=torch.int32,
+                       device=device)])                 # out of range: drop
+        self.valid_pts = torch.cat([pts[idx], pts.new_zeros((pad, 3))])
+        self.num_valid_pts = int(n)
+        # the prior everywhere; the band's entries come from the network
+        self.prior_volume = torch.where(self.infer_pts_flag,
+                                        torch.zeros_like(self.invalid_pts_ov),
+                                        self.invalid_pts_ov)
 
     def _load_pos_map(self, data_idx: int) -> np.ndarray:
         """EXR position map -> (H, W, 6) front/back stack, channels last
@@ -252,7 +300,10 @@ class AvatarCapDataset:
         """Assemble one item. ``light`` leaves out the per-pose arrays
         (position map, live SMPL vertices, joint mats, pose) and the
         per-subject ones, and adds ``pose_idx``: device_batches keeps
-        those on the device."""
+        those on the device. A test item reads its position map from disk,
+        has all-ones color and mask, carries every box and body ray of
+        its view, and the grid (``cano_pts``, ``valid_pts_flag``, tensors
+        on the grid's device) in place of sampled points."""
         if rng is None:
             rng = np.random
         pose_idx = index // self.img_num_per_pose
@@ -263,12 +314,17 @@ class AvatarCapDataset:
         live_pose, live_v, cano2live, live_bounds = self._live_fk(pose_idx)
 
         # image + mask (reference :216-225)
-        color = cv.imread(self.color_img_list[index],
-                          cv.IMREAD_UNCHANGED).astype(np.float32) / 255.0
-        if not self.mask_img_list:
-            mask = (np.linalg.norm(color, axis=-1) > 0).astype(np.uint8)
+        if not self.training:
+            color = np.ones((self.img_h, self.img_w, 3), np.float32)
+            mask = np.ones((self.img_h, self.img_w), np.uint8)
         else:
-            mask = cv.imread(self.mask_img_list[index], cv.IMREAD_UNCHANGED)
+            color = cv.imread(self.color_img_list[index],
+                              cv.IMREAD_UNCHANGED).astype(np.float32) / 255.0
+            if not self.mask_img_list:
+                mask = (np.linalg.norm(color, axis=-1) > 0).astype(np.uint8)
+            else:
+                mask = cv.imread(self.mask_img_list[index],
+                                 cv.IMREAD_UNCHANGED)
 
         # camera extrinsics (reference :227-237)
         cam_path = os.path.join(self.data_dir,
@@ -283,10 +339,11 @@ class AvatarCapDataset:
 
         rays = sample_rays(color, mask, self.K, w2c_RT[:3, :3],
                            w2c_RT[:3, 3:], live_bounds, SAMPLED_RAY_NUM,
-                           True, rng=rng)
+                           self.training, rng=rng)
         coord = rays["coord"]
         occupancy = mask[coord[:, 0], coord[:, 1]]
-        if self.data_type == "synthetic" and self.depth_img_list:
+        if self.training and self.data_type == "synthetic" \
+                and self.depth_img_list:
             depth_img = cv.imread(self.depth_img_list[index],
                                   cv.IMREAD_UNCHANGED)
             z = depth_img[coord[:, 0], coord[:, 1]] / 1000.0
@@ -314,7 +371,10 @@ class AvatarCapDataset:
         else:
             item.update({
                 "smpl_pose": live_pose,
-                "smpl_pos_map": self.pos_maps[pose_idx].copy(),  # (H, W, 6)
+                "smpl_pos_map": (self.pos_maps[pose_idx].copy()
+                                 if self.training
+                                 else self._load_pos_map(data_idx)),
+                # (H, W, 6)
                 "cano2live_jnt_mats": cano2live.astype(np.float32),
                 "cano2posmap_jnt_mats": self.cano2posmap_jnt_mats,
                 "cano_bounds": self.cano_bounds,
@@ -323,6 +383,10 @@ class AvatarCapDataset:
                 "live_smpl_v": live_v.astype(np.float32),
             })
 
+        if not self.training:
+            item["cano_pts"] = self.infer_pts
+            item["valid_pts_flag"] = self.infer_pts_flag
+            return item
         pre = self.presampled_data[pose_idx]
         # clamp to the presampled population (tiny synthetic subjects)
         n_sur = min(SURFACE_PTS_PER_ITEM, pre["sur_pts"].shape[0])
@@ -448,6 +512,8 @@ class AvatarCapDataset:
         pinned host memory with non-blocking copies, and the next batch's
         copies are started before the current batch is handed out.
         """
+        if not self.training:
+            raise ValueError("device_batches is a training-mode helper")
         device = resolve_device(device)
         if workers == "process" and num_workers > 0:
             self._fork_pool(num_workers)

@@ -55,9 +55,11 @@ from avatarcap_tpu_torch.pipeline.avatar import (
     grid_pose_features, pack_fused_query_weights, query_occupancy,
     render_rays, stage)
 from avatarcap_tpu_torch.render.camera import (
-    cano_front_back_mvp, gl_perspective_projection_matrix)
+    cano_front_back_mvp, gl_perspective_projection_matrix, real2gl_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
-from avatarcap_tpu_torch.render.visualize import cano_index_passes, phong_shade
+from avatarcap_tpu_torch.render.visualize import (cano_index_passes,
+                                                  phong_shade,
+                                                  render_live_mesh)
 
 
 class CaptureGrid(NamedTuple):
@@ -929,3 +931,21 @@ class AvatarCapture:
                     overflow = overflow | xfer_ovf
             results["overflow"] = overflow
         return results
+
+    def render_live(self, live_mesh: CaptureMesh, front_mv, back_mv,
+                    colors=None):
+        """Perspective Phong preview of a live mesh, front and back (the
+        reference's main.py:397-403): the fixed 5000 / 256 / 512
+        projection, ``render_res`` and ``raster_window``. ``front_mv`` /
+        ``back_mv`` come from render.camera.calc_front_mv / calc_back_mv;
+        ``colors`` (3*T, 3) tint the shading."""
+        proj = gl_perspective_projection_matrix(5000, 5000, 256, 256,
+                                                512, 512, gl_space=True)
+        color_tris = None if colors is None else colors.reshape(-1, 3, 3)
+        with torch.inference_mode():
+            return render_live_mesh(
+                live_mesh.vertices.reshape(-1, 3, 3),
+                live_mesh.normals.reshape(-1, 3, 3), live_mesh.valid,
+                front_mv, back_mv, proj, real2gl_matrix(),
+                res=self.opt.render_res, window=self.opt.raster_window,
+                color_tris=color_tris)

@@ -1,6 +1,6 @@
-"""Camera matrices (numpy, host-side set-up; a copy of the parts of
-avatarcap_tpu/render/camera.py the capture frame uses): the canonical
-orthographic pair and the perspective projection of the live pass.
+"""Camera matrices (numpy, host-side set-up; a copy of
+avatarcap_tpu/render/camera.py): the canonical orthographic pair, the
+perspective projection, and the model-views of the live previews.
 
 GL conventions: row-major (4, 4) matrices; the back view is the front
 view rotated pi about y around the mesh center.
@@ -11,6 +11,13 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+
+def _rot_x(angle):
+    c, s = math.cos(angle), math.sin(angle)
+    m = np.identity(4, np.float32)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
 
 
 def _rot_y(angle):
@@ -65,3 +72,36 @@ def gl_perspective_projection_matrix(fx, fy, cx, cy, img_w, img_h,
         real2gl[2, 2] = -1
         proj = proj @ real2gl
     return proj
+
+
+def calc_front_mv(mesh_vertices: np.ndarray, rot_x_angle=0.0,
+                  rot_y_angle=0.0):
+    """Model-view looking at the mesh's box center from 20 units in front
+    (the reference's utils/visualize_util.py:55-71)."""
+    center = 0.5 * (mesh_vertices.max(0) + mesh_vertices.min(0))
+    T0 = np.identity(4, np.float32)
+    T0[:3, 3] = -center
+    T0 = _rot_x(rot_x_angle) @ T0
+    T0 = _rot_y(rot_y_angle) @ T0
+    T2 = np.identity(4, np.float32)
+    T2[2, 3] = 20
+    return T2 @ T0
+
+
+def calc_back_mv(mesh_vertices: np.ndarray, rot_x_angle=0.0):
+    """calc_front_mv's view turned pi about y (the reference's
+    utils/visualize_util.py:74-87)."""
+    center = 0.5 * (mesh_vertices.max(0) + mesh_vertices.min(0))
+    T0 = np.identity(4, np.float32)
+    T0[:3, 3] = -center
+    T0 = _rot_x(rot_x_angle) @ T0
+    T1 = _rot_y(math.pi)
+    T2 = np.identity(4, np.float32)
+    T2[2, 3] = 20
+    return T2 @ T1 @ T0
+
+
+def real2gl_matrix():
+    """Rotation by pi about x: real camera (y down, z forward) -> GL
+    camera."""
+    return _rot_x(math.pi)

@@ -35,7 +35,6 @@ Usage: python -m avatarcap_tpu_torch.tools.bench_train [--steps 10]
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import json
 import shutil
@@ -45,6 +44,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from avatarcap_tpu_torch.utils.timers import StageTimer
 
 # H100 SXM data-sheet float32 peak outside the tensor cores (TF32 is off)
 PEAK_F32_FLOPS = 67e12
@@ -79,24 +80,6 @@ CKPT_DIR = Path(__file__).resolve().parents[2] / "build" / "train_ckpt"
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-class StageClock:
-    """``timer`` of a train step or a capture frame: synchronised seconds
-    of each stage."""
-
-    def __init__(self, device):
-        self.device = device
-        self.seconds = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name):
-        _sync(self.device)
-        t0 = time.perf_counter()
-        yield
-        _sync(self.device)
-        self.seconds[name] = (self.seconds.get(name, 0.0)
-                              + time.perf_counter() - t0)
 
 
 def step_macs(model, batch, n_samples: int) -> dict:
@@ -170,11 +153,11 @@ def full_width_steps(env, device, n_steps: int) -> dict:
 
 
 def stage_times(env, device) -> dict:
-    clock = StageClock(device)
+    timer = StageTimer(device)
     gen = torch.Generator(device=device).manual_seed(1)
     env["state"], _ = env["trainer"].train_step(
-        env["state"], env["batch"], LRS, generator=gen, timer=clock)
-    return clock.seconds
+        env["state"], env["batch"], LRS, generator=gen, timer=timer)
+    return timer.times
 
 
 def epoch0_policy(env, device) -> dict:

@@ -13,6 +13,8 @@ import os
 
 import torch
 
+from avatarcap_tpu_torch.weights import load_reference_checkpoint
+
 NET_FILE = "net.pt"
 OPTM_FILE = "optm.pt"
 
@@ -27,9 +29,9 @@ def save_train_state(dir_path: str, state) -> None:
 
 
 def load_network(dir_path: str, model: torch.nn.Module) -> None:
-    """Load a checkpoint's network into ``model`` (strict)."""
-    model.load_state_dict(torch.load(os.path.join(dir_path, NET_FILE),
-                                     map_location="cpu", weights_only=True))
+    """Load a checkpoint's network into ``model`` (strict; a released
+    reference checkpoint loads too)."""
+    load_reference_checkpoint(model, os.path.join(dir_path, NET_FILE))
 
 
 def load_train_state(dir_path: str, state):

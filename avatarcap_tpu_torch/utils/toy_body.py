@@ -63,3 +63,20 @@ def make_toy_smpl_params(num_joints=24, num_shapes=10, seed=0, n_lat=10,
         v_template=v_template, faces=faces, joints_template=joints,
         kintree_parents=parents, weights=w, j_regressor=j_reg,
         shapedirs=shapedirs)
+
+
+def write_smpl_pkl(params: SmplParams, path: str) -> None:
+    """Write ``params`` as an official-layout SMPL pkl (the fields
+    SmplParams.load reads: kintree_table (2, J), shapedirs (V, 3, S)), so
+    that a toy body goes through the loader real SMPL files take."""
+    import pickle
+    J = params.num_joints
+    kintree = np.stack([np.asarray(params.kintree_parents, np.int64),
+                        np.arange(J, dtype=np.int64)])
+    data = {"v_template": params.v_template, "f": params.faces,
+            "J": params.joints_template, "kintree_table": kintree,
+            "weights": params.weights, "J_regressor": params.j_regressor,
+            "shapedirs": params.shapedirs.reshape(
+                params.num_vertices, 3, -1)}
+    with open(path, "wb") as f:
+        pickle.dump(data, f)

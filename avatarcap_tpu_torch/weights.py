@@ -155,3 +155,13 @@ def load_reference_state_dict(model: torch.nn.Module,
     kept = {k: v for k, v in state_dict.items()
             if not k.startswith(REFERENCE_DEAD_PREFIXES)}
     model.load_state_dict(kept, strict=True)
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a torch checkpoint file (``net.pt``, ``recon_net.pt``) into
+    ``model``: a released reference checkpoint keeps its state_dict under
+    ``"network"`` (unwrapped here, as the JAX package's
+    tools/convert_torch_ckpt.load_torch_state_dict does); the port's own
+    checkpoints are the bare state_dict. Tensors only (weights_only)."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    load_reference_state_dict(model, data.get("network", data))

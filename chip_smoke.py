@@ -50,7 +50,22 @@ Phases, each fatal on failure:
   7. the avatar-only, the production and the textured production frame on
      a small subject on the card and on the CPU (f32 path and kernels),
      which must agree; the textured frame's colors through the kernels on
-     the card also against the f32 path on the CPU.
+     the card also against the f32 path on the CPU;
+  8. the training phase (tools/bench_train.run);
+  9. the command line ([cli]): the port's generate_subject writes a
+     subject (the toy body's 6,752 vertices as an SMPL pkl, the canonical
+     and one posed pose, 2 views, 512^2 images, 256^2 position maps,
+     20,000 + 2,000 presampled points); cli.main -m train fits it for 2
+     epochs and its epoch_latest/net.pt reads back through the test mode's
+     loader; the test-mode grid (384 x 384 x 128: KNN band and inside
+     prior) is built and timed, and the inside test alone; cli.main -m test --nerf --save-avatar-mesh
+     --save-final-mesh --frame-idx 0 runs one full-width textured frame
+     with phase 2's networks saved as net.pt / recon_net.pt and the
+     capture options of phase 2, the launch counts set to 0 just before
+     and read just after (2 K1, 2 K2, 2 K3); the three JPEGs and two PLYs
+     must exist, the PLYs be finite with triangles, and the avatar PLY's
+     triangle count equal that of process_frame run directly on the same
+     dataset item and weights.
 Prints each kernel's TFLOP/s and the share of its measured time that its
 bound explains, the kernel table as one JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Writes
@@ -372,10 +387,10 @@ def run_frame(capture, item, device, w_nerf=False, **frame_kw):
 
 def stage_times(capture, item, device, w_nerf=False, **frame_kw):
     """Synchronised seconds of each stage of one frame."""
-    from avatarcap_tpu_torch.tools.bench_train import StageClock
-    clock = StageClock(device)
-    capture.process_frame(item, w_nerf=w_nerf, timer=clock, **frame_kw)
-    return clock.seconds
+    from avatarcap_tpu_torch.utils.timers import StageTimer
+    timer = StageTimer(device)
+    capture.process_frame(item, w_nerf=w_nerf, timer=timer, **frame_kw)
+    return timer.times
 
 
 def k2_launch_inputs(capture, res):
@@ -824,6 +839,192 @@ def check_small_frame(device):
     return report
 
 
+CLI_DIR = os.path.join(HERE, "build", "cli_phase")
+
+
+def save_cli_networks(capture):
+    """Phase 2's avatar, texture avatar and ReconNet as the checkpoint
+    files the CLI reads (net.pt, recon_net.pt), under CLI_DIR."""
+    import shutil
+    import torch
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    dirs = {}
+    for key, module, name in (("net_ckpt", capture.avatar, "net.pt"),
+                              ("net_ckpt_finetuned", capture.tex_avatar,
+                               "net.pt"),
+                              ("recon_net_ckpt", capture.recon,
+                               "recon_net.pt")):
+        d = os.path.join(CLI_DIR, "networks", key)
+        os.makedirs(d)
+        torch.save(module.state_dict(), os.path.join(d, name))
+        dirs[key] = d
+    return dirs
+
+
+def _ply_check(path):
+    """(triangles, vertices finite) of a PLY the CLI wrote."""
+    import numpy as np
+    from avatarcap_tpu_torch.data.mesh_io import load_ply
+    v, f, n, _ = load_ply(path)
+    return len(f), bool(np.isfinite(v).all() and np.isfinite(n).all())
+
+
+def cli_phase(device, network_dirs):
+    """Phase 9 (see the module docstring). Returns the [cli] record."""
+    import numpy as np
+    import torch
+    import yaml
+    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch.body.smpl import SmplParams, canonical_pose
+    from avatarcap_tpu_torch.config import load_config
+    from avatarcap_tpu_torch.data.dataset import AvatarCapDataset
+    from avatarcap_tpu_torch.data.image_io import load_float_image
+    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+    from avatarcap_tpu_torch.models.recon import ReconNetwork
+    from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureGrid)
+    from avatarcap_tpu_torch.tools.bench_workloads import CAPTURE_OPTIONS
+    from avatarcap_tpu_torch.tools.gen_synthetic import generate_subject
+    from avatarcap_tpu_torch.utils.toy_body import (make_toy_smpl_params,
+                                                    write_smpl_pkl)
+    from avatarcap_tpu_torch.weights import load_reference_checkpoint
+    rec = {}
+    subject = os.path.join(CLI_DIR, "subject")
+    smpl_dir = os.path.join(CLI_DIR, "smpl")
+    os.makedirs(smpl_dir)
+    params = make_toy_smpl_params(n_lat=77, n_lon=90)     # 6,752 vertices
+    write_smpl_pkl(params, os.path.join(smpl_dir,
+                                        cli.SMPL_FILES["M"]))
+    posed = canonical_pose().copy()
+    posed[6:] += np.random.RandomState(0).uniform(
+        -0.2, 0.2, posed.size - 6).astype(np.float32)
+    t0 = time.perf_counter()
+    generate_subject(subject, params, np.zeros(10, np.float32),
+                     np.stack([canonical_pose(), posed]), n_views=2,
+                     img_size=512, pos_map_res=256, device=device)
+    _sync(device)
+    rec["subject_write_s"] = time.perf_counter() - t0
+
+    opts = {k: v for k, v in CAPTURE_OPTIONS.items() if k != "render_res"}
+    cfg = {"training": {"training_data_dir": subject,
+                        "net_ckpt_dir": os.path.join(CLI_DIR, "train"),
+                        "end_epoch": 2, "finetune_tex": False},
+           "testing": {"vol_res": [384, 384, 128], "render_res": 512,
+                       "testing_data_dir": subject,
+                       "output_dir": os.path.join(CLI_DIR, "out"),
+                       "capture_options": opts, **network_dirs},
+           "smpl_model_dir": smpl_dir}
+    cfg_path = os.path.join(CLI_DIR, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    t0 = time.perf_counter()
+    cli.main(["-c", cfg_path, "-m", "train"])
+    _sync(device)
+    rec["train_cli_s"] = time.perf_counter() - t0
+    latest = os.path.join(CLI_DIR, "train", "epoch_latest", "net.pt")
+    back = GeoTexAvatar()
+    load_reference_checkpoint(back, latest)
+    saved = torch.load(latest, map_location="cpu", weights_only=True)
+    if any(not torch.equal(v, saved[k])
+           for k, v in back.state_dict().items()):
+        raise AssertionError("epoch_latest/net.pt does not read back")
+
+    params = SmplParams.load(os.path.join(smpl_dir, cli.SMPL_FILES["M"]))
+    _sync(device)
+    t0 = time.perf_counter()
+    ds = AvatarCapDataset(subject, training=False, smpl_params=params,
+                          vol_res=(384, 384, 128), device=device)
+    _sync(device)
+    rec["test_grid_s"] = time.perf_counter() - t0
+    # the inside test's share of the grid build, run once more alone
+    from avatarcap_tpu_torch.ops.inside import points_inside_mesh
+    tris = torch.as_tensor(ds.cano_smpl_v[params.faces], device=device)
+    t0 = time.perf_counter()
+    points_inside_mesh(ds.infer_pts, tris)
+    _sync(device)
+    rec["inside_test_s"] = time.perf_counter() - t0
+    rec["grid_nodes"] = int(ds.infer_pts.shape[0])
+    rec["grid_triangles"] = int(len(params.faces))
+    rec["near_body_nodes"] = ds.num_valid_pts
+    rec["near_body_nodes_stand_in_grid"] = 9238537
+    rec["inside_prior_nodes"] = int((ds.prior_volume > 0).sum())
+
+    for fn in _wrappers().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = cli.main(["-c", cfg_path, "-m", "test", "--nerf",
+                        "--save-avatar-mesh", "--save-final-mesh",
+                        "--frame-idx", "0"])
+    _sync(device)
+    rec["test_cli_s"] = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _wrappers().items()}
+    (frame,) = records
+    rec.update(frame=frame, launches=launches)
+    if (launches["k1"], launches["k2"], launches["k3"]) != (2, 2, 2):
+        raise AssertionError(f"the CLI's frame launched {launches}, "
+                             "expected 2 K1, 2 K2 and 2 K3")
+    out = os.path.join(CLI_DIR, "out")
+    for name in ("cano_avatar/0000.jpg", "live_avatar/0000.jpg",
+                 "live_recon/0000.jpg"):
+        if not os.path.getsize(os.path.join(out, name)):
+            raise AssertionError(f"the CLI wrote no {name}")
+    plys = {k: _ply_check(os.path.join(out, f"0000_{k}.ply"))
+            for k in ("avatar", "recon")}
+    rec["ply_triangles"] = {k: v[0] for k, v in plys.items()}
+    if not all(n > 0 and ok for n, ok in plys.values()):
+        raise AssertionError(f"the CLI's PLYs: {plys}")
+
+    # process_frame on the same dataset item and weights
+    c = load_config(cfg_path)
+    statics = AvatarStatics(*(torch.as_tensor(np.asarray(a, np.float32))
+                              for a in (np.load(os.path.join(
+                                  subject,
+                                  "cano_base_blend_weight_volume.npy")),
+                                  ds.cano_smpl_v, params.weights,
+                                  ds.cano_bounds, ds.cano_smpl_center)))
+    avatar = GeoTexAvatar()
+    load_reference_checkpoint(avatar, os.path.join(
+        network_dirs["net_ckpt"], "net.pt"))
+    tex = GeoTexAvatar()
+    load_reference_checkpoint(tex, os.path.join(
+        network_dirs["net_ckpt_finetuned"], "net.pt"))
+    recon = ReconNetwork()
+    load_reference_checkpoint(recon, os.path.join(
+        network_dirs["recon_net_ckpt"], "recon_net.pt"))
+    capture = AvatarCapture(
+        avatar, statics, CaptureGrid(ds.valid_pts, ds.valid_pts_idx,
+                                     ds.prior_volume, (384, 384, 128)),
+        recon=recon, tex_avatar=tex, options=cli._capture_options(c),
+        device=device)
+    item = ds[0]
+    normal = load_float_image(os.path.join(
+        subject, f"imgs/{item['data_idx']:03d}/normal_view_000.exr"))
+    with torch.inference_mode():
+        res = capture.process_frame(
+            item, w_recon=True, w_nerf=True, inferred_normal=normal,
+            neck_vertex_idx=cli.NECK_VERTEX_IDX,
+            camera=ds.data_config["camera"])
+    rec["process_frame_triangles"] = int(res["live_mesh"].num_tris)
+    if rec["process_frame_triangles"] != rec["ply_triangles"]["avatar"]:
+        raise AssertionError(
+            f"the CLI's avatar PLY has {rec['ply_triangles']['avatar']} "
+            f"triangles, process_frame {rec['process_frame_triangles']}")
+    print(f"[cli] subject write {rec['subject_write_s']:.2f} s; train CLI "
+          f"(2 epochs) {rec['train_cli_s']:.2f} s; test grid "
+          f"{rec['test_grid_s']:.2f} s (inside test {rec['inside_test_s']:.2f}"
+          f" s of it; {rec['grid_nodes']} nodes x "
+          f"{rec['grid_triangles']} triangles; {rec['near_body_nodes']} "
+          f"near-body nodes, the stand-in grid had 9238537); test CLI "
+          f"{rec['test_cli_s']:.2f} s, its frame {frame['seconds']:.3f} s, "
+          f"overflow {frame['overflow']}, stages "
+          + ", ".join(f"{k} {1e3 * v:.1f} ms"
+                      for k, v in frame["stages"].items()))
+    del capture, res, ds
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -888,6 +1089,7 @@ def main() -> int:
     k3, frame_n = textured_frames(capture, item, recon_kw, device)
     record["frame_w_nerf"] = frame_n
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
+    network_dirs = save_cli_networks(capture)
     del capture
     from avatarcap_tpu_torch.ops.fused_query import weight_image
     record["weight_image"]["builds_by_wrappers"] = weight_image.builds
@@ -904,6 +1106,13 @@ def main() -> int:
     from avatarcap_tpu_torch.tools import bench_train
     record["train"] = bench_train.run(device)
     print(f"[train] {json.dumps(record['train'])}")
+
+    import shutil
+    try:
+        record["cli"] = cli_phase(device, network_dirs)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    print(f"[cli] {json.dumps(record['cli'])}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -387,3 +387,85 @@ def test_finetune_keeps_warp_on_card(card, train_env):
     from avatarcap_tpu_torch.tools.bench_train import finetune_steps
     rec = finetune_steps(train_env, card)
     assert len(rec["step_ms"]) == 2
+
+
+@pytest.fixture(scope="module")
+def cli_subject(card, tmp_path_factory):
+    """A subject written by the port's writer (on the CPU) on the toy body
+    at 3,202 vertices, its SMPL pkl and a random ReconNet checkpoint."""
+    import numpy as np
+    from avatarcap_tpu_torch.body.smpl import canonical_pose
+    from avatarcap_tpu_torch.tools.bench_workloads import random_recon
+    from avatarcap_tpu_torch.tools.gen_synthetic import generate_subject
+    from avatarcap_tpu_torch.utils.toy_body import (make_toy_smpl_params,
+                                                    write_smpl_pkl)
+    root = tmp_path_factory.mktemp("cli_card")
+    params = make_toy_smpl_params(n_lat=42, n_lon=80)
+    (root / "smpl").mkdir()
+    write_smpl_pkl(params, str(root / "smpl" /
+                               "basicmodel_m_lbs_10_207_0_v1.0.0.pkl"))
+    pose = canonical_pose().copy()
+    pose[6:] += np.random.RandomState(0).uniform(
+        -0.2, 0.2, pose.size - 6).astype(np.float32)
+    generate_subject(str(root / "subject"), params, np.zeros(10, np.float32),
+                     pose[None], n_views=1, img_size=128, pos_map_res=128,
+                     sur_pts_count=1000, vol_pts_count=100, device="cpu")
+    (root / "recon").mkdir()
+    torch.save(random_recon(torch.Generator().manual_seed(1)).state_dict(),
+               str(root / "recon" / "recon_net.pt"))
+    return root, params
+
+
+@pytest.mark.cuda
+def test_test_grid_on_card_equals_cpu(card, cli_subject):
+    """The dataset's test-mode grid (KNN band, inside prior, compaction)
+    built on the card equals the CPU's."""
+    from avatarcap_tpu_torch.data.dataset import AvatarCapDataset
+    root, params = cli_subject
+    grids = [AvatarCapDataset(str(root / "subject"), training=False,
+                              smpl_params=params, vol_res=(96, 96, 48),
+                              device=dev) for dev in (card, "cpu")]
+    assert grids[0].valid_pts.device.type == "cuda"
+    assert grids[0].num_valid_pts == grids[1].num_valid_pts > 0
+    for name in ("infer_pts_flag", "valid_pts_idx", "prior_volume",
+                 "valid_pts"):
+        a, b = (getattr(g, name).cpu() for g in grids)
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+def test_cli_frame_on_card_matches_cpu(card, cli_subject, tmp_path):
+    """run_avatarcap's textured frame through the kernels, on the card
+    and (their plain versions) on the CPU: the triangle counts within 1%,
+    as chip_smoke.py's small frames."""
+    import yaml
+    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch.config import load_config
+    root, _ = cli_subject
+    cfg = {"training": {"training_data_dir": str(root / "subject")},
+           "testing": {"vol_res": [64, 64, 32],
+                       "testing_data_dir": str(root / "subject"),
+                       "recon_net_ckpt": str(root / "recon"),
+                       "render_res": 128,
+                       "capture_options": {
+                           "max_tris": 1 << 15, "max_active": 1 << 13,
+                           "refine_capacity": 1 << 16,
+                           "nerf_unique_capacity": 1 << 14,
+                           "recon_unique_capacity": 1 << 14,
+                           "recon_color_mode": "direct", "n_samples": 16,
+                           "fusion_iters": 10}},
+           "smpl_model_dir": str(root / "smpl")}
+    records = {}
+    for dev in ("cuda", "cpu"):
+        cfg["testing"]["output_dir"] = str(tmp_path / dev)
+        path = str(tmp_path / f"{dev}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        (records[dev],) = cli.run_avatarcap(
+            load_config(path), w_nerf=True, save_avatar_mesh=True,
+            save_final_mesh=True, frame_idx=0, device=dev)
+    for key in ("num_tris", "recon_num_tris"):
+        a, b = records["cuda"][key], records["cpu"][key]
+        assert b > 0 and abs(a - b) <= 0.01 * b, (key, a, b)
+    for dev in ("cuda", "cpu"):
+        assert (tmp_path / dev / "0000_recon.ply").exists()

@@ -23,6 +23,7 @@ from conftest import make_toy_smpl_params
 # arrays derived from the forward kinematics (see the module docstring)
 FK_KEYS = {"live_smpl_v", "cano2live_jnt_mats", "cano_smpl_jnts",
            "cano_bounds", "cano_smpl_center", "near", "far"}
+TEST_VOL_RES = (32, 32, 16)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -63,7 +64,13 @@ def subject(tmp_path_factory):
     jds = JDataset(out, training=True, smpl_params=params)
     tds = AvatarCapDataset(out, training=True,
                            smpl_params=_port_params(params))
-    yield dict(dir=out, params=params, jds=jds, tds=tds)
+    test_mode = (AvatarCapDataset(out, training=False,
+                                  smpl_params=_port_params(params),
+                                  vol_res=TEST_VOL_RES, device="cpu"),
+                 JDataset(out, training=False, smpl_params=params,
+                          vol_res=TEST_VOL_RES))
+    yield dict(dir=out, params=params, jds=jds, tds=tds,
+               test_mode=test_mode)
     tds.close()
 
 
@@ -90,9 +97,29 @@ def test_dataset_layout(subject):
                                    rtol=1e-5, atol=1e-5, err_msg=name)
     np.testing.assert_array_equal(tds.cano2posmap_jnt_mats,
                                   jds.cano2posmap_jnt_mats)
-    with pytest.raises(NotImplementedError, match="test-mode"):
-        type(tds)(subject["dir"], training=False,
-                  smpl_params=tds.smpl_params)
+    # test mode: the port's grid (built on the CPU) against JAX's
+    tgrid, jgrid = subject["test_mode"]
+    _assert_test_grids_equal(tgrid, jgrid)
+
+
+def _assert_test_grids_equal(tds, jds):
+    """The test-mode grids of two datasets on one subject: flags, compacted
+    indices, counts and priors equal; the grid points (from the canonical
+    bounds, which come from the forward kinematics) within 1e-6."""
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    assert tds.num_valid_pts == jds.num_valid_pts > 0
+    assert tds.vol_res == jds.vol_res
+    for name in ("infer_pts_flag", "valid_pts_idx", "prior_volume",
+                 "invalid_pts_ov"):
+        a, b = host(getattr(tds, name)), np.asarray(getattr(jds, name))
+        assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in ("valid_pts", "infer_pts"):
+        np.testing.assert_allclose(host(getattr(tds, name)),
+                                   np.asarray(getattr(jds, name)),
+                                   rtol=0, atol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("light", [False, True])
@@ -103,6 +130,34 @@ def test_getitem_matches_jax(subject, light):
         got = subject["tds"].__getitem__(
             index, np.random.RandomState(10 + index), light=light)
         _assert_items_equal(got, ref)
+
+
+def test_test_items_match_jax(subject):
+    """Test-mode items (every view of every pose): the position map read
+    from disk, all-ones color and mask, all box and body rays of the view,
+    equal to JAX's; the arrays computed from the forward kinematics at
+    1e-6 (the position map and extrinsics exactly); the grid by
+    reference."""
+    tds, jds = subject["test_mode"]
+    assert len(tds) == len(jds) == 4
+    for index in range(4):
+        got, ref = tds[index], jds[index]
+        assert set(got) == set(ref), set(got) ^ set(ref)
+        assert got["cano_pts"] is tds.infer_pts
+        assert got["valid_pts_flag"] is tds.infer_pts_flag
+        for k, a in ref.items():
+            if k in ("cano_pts", "valid_pts_flag"):
+                continue
+            b = np.asarray(got[k])
+            a = np.asarray(a)
+            assert b.shape == a.shape and b.dtype == a.dtype, (k, b.dtype)
+            if k in FK_KEYS:
+                np.testing.assert_allclose(b, a, rtol=0, atol=1e-6,
+                                           err_msg=k)
+            else:
+                np.testing.assert_array_equal(b, a, err_msg=k)
+    with pytest.raises(ValueError, match="training-mode"):
+        next(tds.device_batches(2, device="cpu"))
 
 
 @pytest.mark.parametrize("num_workers,workers", [(0, "thread"),
