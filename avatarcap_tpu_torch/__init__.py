@@ -16,7 +16,10 @@ fusion, ReconNet, NeRF vertex colors; kernels K1-K5), and avatar training:
 ``train.finetune.finetune_texture_template`` and the dataset
 ``data.dataset.AvatarCapDataset`` (training and test mode), and the
 command line: ``cli`` (``python -m avatarcap_tpu_torch.cli -c <cfg> -m
-{train,test}``), ``config``, ``tools.gen_synthetic``.
+{train,test} [--stream N]``), ``config``, ``tools.gen_synthetic``, and
+streaming and sharding: ``pipeline.streaming.StreamingCapture``,
+``parallel`` (``make_mesh``, ``grid_query.ShardedGridQuery``) and
+``AvatarCapture(shard_mesh=...)``.
 """
 
 from avatarcap_tpu_torch.device import resolve_device  # noqa: F401

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.ops.knn import approx_lbs_weights
 
 
@@ -101,12 +102,11 @@ def _trilerp_rows(vol: torch.Tensor, pts01: torch.Tensor) -> torch.Tensor:
     (border clamp, node-aligned): one 8C-wide cell row per point."""
     Gx, Gy, Gz, C = vol.shape
     cells = _cell_table(vol)
-    hi = torch.tensor([Gx - 1, Gy - 1, Gz - 1], dtype=pts01.dtype,
-                      device=pts01.device)
+    hi = device_constant([Gx - 1, Gy - 1, Gz - 1], pts01.device, pts01.dtype)
     f = torch.minimum(torch.clamp(pts01 * hi, min=0.0), hi)
     i0 = torch.floor(f).long()
-    i0 = torch.minimum(i0, torch.tensor([Gx - 2, Gy - 2, Gz - 2],
-                                        device=pts01.device))
+    i0 = torch.minimum(i0, device_constant([Gx - 2, Gy - 2, Gz - 2],
+                                           pts01.device, torch.long))
     t = f - i0.to(f.dtype)
     cell = (i0[:, 0] * (Gy - 1) + i0[:, 1]) * (Gz - 1) + i0[:, 2]
     rows = cells[cell].reshape(-1, 8, C)
@@ -120,14 +120,14 @@ def _trilerp_rows_grouped(vol: torch.Tensor, pts01: torch.Tensor,
     cell's interpolant extrapolates linearly for a straddling vertex)."""
     Gx, Gy, Gz, C = vol.shape
     cells = _cell_table(vol)
-    scale = torch.tensor([Gx - 1, Gy - 1, Gz - 1], dtype=pts01.dtype,
-                         device=pts01.device)
+    scale = device_constant([Gx - 1, Gy - 1, Gz - 1], pts01.device,
+                            pts01.dtype)
     f = torch.minimum(torch.clamp(pts01 * scale, min=0.0), scale)
     fg = f.reshape(-1, group, 3)
     i0 = torch.floor(fg.mean(1)).long()
     i0 = torch.minimum(torch.clamp(i0, min=0),
-                       torch.tensor([Gx - 2, Gy - 2, Gz - 2],
-                                    device=pts01.device))
+                       device_constant([Gx - 2, Gy - 2, Gz - 2],
+                                       pts01.device, torch.long))
     t = fg - i0[:, None, :].to(f.dtype)
     cell = (i0[:, 0] * (Gy - 1) + i0[:, 1]) * (Gz - 1) + i0[:, 2]
     rows = cells[cell].reshape(-1, 1, 8, C)

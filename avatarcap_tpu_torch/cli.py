@@ -5,7 +5,7 @@ Usage:
   python -m avatarcap_tpu_torch.cli -c configs/example.yaml -m train
   python -m avatarcap_tpu_torch.cli -c configs/example.yaml -m test \
       [--nerf] [--save-avatar-mesh] [--save-final-mesh] [--interval N] \
-      [--view-idx V] [--frame-idx F] [--device cpu]
+      [--view-idx V] [--frame-idx F] [--stream N] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given (the JAX CLI's
 ``JAX_PLATFORMS``). Networks load from the reference's file names:
@@ -141,8 +141,9 @@ def _save_mesh(path, mesh, colors):
 def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
                   save_final_mesh=False, interval=1, view_idx=0, stream=0,
                   frame_idx=None, device=None):
-    """The reference's main.py:275-504, one frame at a time: every
-    ``interval``-th frame of the test subject, or only ``frame_idx``.
+    """The reference's main.py:275-504: every ``interval``-th frame of
+    the test subject, or only ``frame_idx``; one frame at a time, or with
+    ``stream`` > 0 through pipeline/streaming.py.
 
     Writes ``cano_avatar/NNNN.jpg``, ``live_avatar/NNNN.jpg`` and (with a
     ReconNet) ``live_recon/NNNN.jpg`` under ``testing.output_dir``, and the
@@ -150,12 +151,15 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
     with ``w_nerf``). Returns one record per frame: data_idx, the frame's
     seconds and its synchronised stage seconds (utils.timers.StageTimer),
     overflow and triangle counts, and the seconds spent saving.
-    ``stream`` > 0 (the frame-batched streaming pipeline) is not ported.
+
+    ``stream`` = N > 0 streams the frames, N per device and batch, one
+    batch loaded at a time: on one device through
+    ``StreamingCapture.run_pipelined``, on a mesh of several (every card,
+    parallel.mesh.make_mesh) through ``run``. Its records carry no stage
+    times, and a frame's seconds are its batch's (dispatch to the end of
+    the batch on the card) over the batch's frames. The outputs are those
+    of the run without it.
     """
-    if stream > 0:
-        raise NotImplementedError(
-            "--stream: the streaming pipeline is not ported yet (ROADMAP "
-            "queue 1 item 4); run without --stream")
     import cv2 as cv
     from avatarcap_tpu_torch.data.image_io import load_float_image
     from avatarcap_tpu_torch.device import resolve_device
@@ -246,9 +250,53 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
                 _save_mesh(os.path.join(out_dir, f"{data_idx:04d}_recon.ply"),
                            rec, results["recon_colors"] if w_nerf else None)
 
+    def record(item, results, seconds, stages):
+        t0 = time.perf_counter()
+        save_frame(item["data_idx"], results)
+        rec = {"data_idx": int(item["data_idx"]), "seconds": seconds,
+               "stages": stages,
+               "save_seconds": time.perf_counter() - t0,
+               "overflow": bool(results["overflow"]),
+               "num_tris": int(results["cano_mesh"].num_tris)}
+        if use_recon:
+            rec["recon_num_tris"] = int(results["recon_mesh"].num_tris)
+        print(f"frame {rec['data_idx']:04d}: {seconds:.3f} s, "
+              f"{rec['num_tris']} triangles"
+              + (f", {rec['recon_num_tris']} ReconNet triangles"
+                 if use_recon else ""))
+        return rec
+
     frame_ids = ([frame_idx] if frame_idx is not None
                  else list(range(0, data_num, interval)))
     records = []
+    if stream > 0:
+        from avatarcap_tpu_torch.parallel.mesh import make_mesh
+        from avatarcap_tpu_torch.pipeline.streaming import StreamingCapture
+        if not frame_ids:
+            print("run_avatarcap: no frames to process")
+            return records
+        img_hw = (load_frame(frame_ids[0])[1].shape[:2] if use_recon
+                  else (cfg.testing.render_res, cfg.testing.render_res))
+        mesh = make_mesh() if device.type == "cuda" else make_mesh([device])
+        sc = StreamingCapture(capture, mesh, camera=cam, image_size=img_hw,
+                              frames_per_device=stream, w_recon=use_recon,
+                              w_nerf=w_nerf, neck_vertex_idx=NECK_VERTEX_IDX)
+        runner = sc.run_pipelined if len(mesh) == 1 else sc.run
+        for start in range(0, len(frame_ids), sc.batch):
+            pairs = [load_frame(i)
+                     for i in frame_ids[start:start + sc.batch]]
+            t0 = time.perf_counter()
+            res_list = runner(
+                [p[0] for p in pairs],
+                inferred_normals=([p[1] for p in pairs] if use_recon
+                                  else None))
+            for dev in set(mesh):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            seconds = (time.perf_counter() - t0) / len(pairs)
+            records += [record(item, results, seconds, {})
+                        for (item, _), results in zip(pairs, res_list)]
+        return records
     for i in frame_ids:
         item, inferred_normal = load_frame(i)
         timer = StageTimer(device)
@@ -259,20 +307,7 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
                 neck_vertex_idx=NECK_VERTEX_IDX, camera=cam,
                 timer=timer)
         seconds = timer.times.pop("frame")
-        t0 = time.perf_counter()
-        save_frame(item["data_idx"], results)
-        rec = {"data_idx": int(item["data_idx"]), "seconds": seconds,
-               "stages": dict(timer.times),
-               "save_seconds": time.perf_counter() - t0,
-               "overflow": bool(results["overflow"]),
-               "num_tris": int(results["cano_mesh"].num_tris)}
-        if use_recon:
-            rec["recon_num_tris"] = int(results["recon_mesh"].num_tris)
-        print(f"frame {rec['data_idx']:04d}: {seconds:.3f} s, "
-              f"{rec['num_tris']} triangles"
-              + (f", {rec['recon_num_tris']} ReconNet triangles"
-                 if use_recon else ""))
-        records.append(rec)
+        records.append(record(item, results, seconds, dict(timer.times)))
     return records
 
 
@@ -287,9 +322,9 @@ def main(argv=None):
     parser.add_argument("-m", "--mode", type=str, default="test",
                         choices=["train", "test"], help="Train or test.")
     parser.add_argument("--stream", type=int, default=0, metavar="N",
-                        help="test mode: the batched streaming pipeline, N "
-                             "frames per device (not ported yet: N > 0 "
-                             "raises).")
+                        help="test mode: stream the frames, N per device "
+                             "and batch (pipelined on one device, sharded "
+                             "over every card on several).")
     parser.add_argument("--nerf", action="store_true",
                         help="test mode: also evaluate NeRF vertex "
                              "colors (textured results).")

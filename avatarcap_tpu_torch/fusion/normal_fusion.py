@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from avatarcap_tpu_torch.body.skinning import mats16_inv_rotate
+from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.ops.adam import Adam
 from avatarcap_tpu_torch.ops.morphology import distance_transform_l1, erode_3x3
 from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
@@ -75,9 +76,9 @@ def lift_image_normals(live_tris: torch.Tensor, valid_tris: torch.Tensor,
 
     # canonicalize: flip y/z, undo the view rotation, then each vertex's
     # skinning rotation (closed-form inverse on the flat mats)
-    proj_n = proj_n * torch.tensor([1.0, -1.0, -1.0], dtype=proj_n.dtype,
-                                   device=proj_n.device)
-    inv_mv_r = torch.linalg.inv(mv)[:3, :3]
+    proj_n = torch.stack([proj_n[:, 0], -proj_n[:, 1], -proj_n[:, 2]], -1)
+    # inv_ex: inv would read its error flag back to the host
+    inv_mv_r = torch.linalg.inv_ex(mv)[0][:3, :3]
     proj_n = torch.einsum("ij,nj->ni", inv_mv_r, proj_n)
     proj_n = mats16_inv_rotate(vert_mats16, proj_n)
     proj_n = torch.where(valid[:, None], proj_n, torch.zeros_like(proj_n))
@@ -129,7 +130,7 @@ def _neighbor_shift(img: torch.Tensor, di: int, dj: int) -> torch.Tensor:
         if np.array_equal(idxs, np.maximum(base - 1, 0)):
             return torch.cat([a.narrow(dim, 0, 1),
                               a.narrow(dim, 0, n - 1)], dim=dim)
-        return a.index_select(dim, torch.as_tensor(idxs, device=a.device))
+        return a.index_select(dim, device_constant(idxs, a.device))
 
     out = shift_axis(img, 0, axis_indices(H, di, W))
     return shift_axis(out, 1, axis_indices(W, dj, H))
@@ -166,7 +167,7 @@ def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
         valid = (src_mask & tar_mask)[..., None]
         n_valid = torch.clamp(valid.sum() * 3, min=1)
         # the 64 -> H resize matrix, built once (not in every step)
-        wr = torch.as_tensor(_resize_matrix(64, H), device=src_img.device)
+        wr = device_constant(_resize_matrix(64, H), src_img.device)
 
         def loss_fn(rot_aa, src):
             rot_mat = axis_angle_to_matrix(_resize_bilinear_ac(rot_aa, wr, wr))

@@ -343,7 +343,7 @@ def unpack_recon_weight_image(image: torch.Tensor) -> List[torch.Tensor]:
 # storage and version, and the entry keeps the tensors alive, so a key
 # cannot come to name other weights
 _IMAGES: "OrderedDict[tuple, tuple]" = OrderedDict()
-_MAX_IMAGES = 8
+_MAX_IMAGES = 32
 
 
 def _tensor_version(t: torch.Tensor) -> int:

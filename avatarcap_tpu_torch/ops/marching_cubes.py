@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
 
 # Cube corner offsets, indexed 0..7 (x, y, z).
@@ -270,12 +271,12 @@ def marching_tets(volume: torch.Tensor, iso: float,
     aix = aid // (ny * nz)
     aiy = (aid // nz) % ny
     aiz = aid % nz
-    corners = torch.as_tensor(_CUBE_CORNERS, device=dev, dtype=torch.long)
+    corners = device_constant(_CUBE_CORNERS, dev, torch.long)
     av = volume[aix[:, None] + corners[:, 0], aiy[:, None] + corners[:, 1],
                 aiz[:, None] + corners[:, 2]]                     # (A, 8)
-    bits = torch.tensor([1 << i for i in range(8)], device=dev)
+    bits = device_constant([1 << i for i in range(8)], dev, torch.long)
     case8 = ((av > iso).long() * bits).sum(-1)                    # (A,)
-    cube_counts = torch.as_tensor(_NTRIS256, device=dev).long()[case8]
+    cube_counts = device_constant(_NTRIS256, dev, torch.long)[case8]
     cube_counts = torch.where(active_valid, cube_counts,
                               torch.zeros_like(cube_counts))
 
@@ -290,7 +291,7 @@ def marching_tets(volume: torch.Tensor, iso: float,
         max_active - 1)
     r = tri_j - (cube_cum[cube_of] - cube_counts[cube_of])
     r = r.clamp(0, MC256_MAX_TRIS - 1)
-    edges = torch.as_tensor(_EDGES256, device=dev).long()[case8[cube_of], r]
+    edges = device_constant(_EDGES256, dev, torch.long)[case8[cube_of], r]
     ea = edges[..., 0].clamp_min(0)                               # (T, 3)
     eb = edges[..., 1].clamp_min(0)
 

@@ -50,7 +50,8 @@ def linspace01(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
     t = torch.arange(n, dtype=dtype, device=device) * (1.0 / (n - 1))
-    t[-1] = 1.0
+    # a fill, where t[-1] = 1.0 would copy a host scalar (and wait)
+    t[n - 1:].fill_(1.0)
     return t
 
 

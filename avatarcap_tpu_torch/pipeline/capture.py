@@ -24,6 +24,8 @@ Not ported yet (they raise ``NotImplementedError``): the ``mc_edge`` and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 from avatarcap_tpu_torch.body.skinning import (
     blend_joint_mats16, build_skin_weight_volume, mats16_apply_points,
     mats16_rotate, skin_points_by_volume)
-from avatarcap_tpu_torch.device import resolve_device
+from avatarcap_tpu_torch.device import (device_constant, resolve_device,
+                                        to_device)
 from avatarcap_tpu_torch.fusion.normal_fusion import (
     lift_image_normals, merge_normal_images, merge_normal_images_cover)
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
@@ -50,6 +53,7 @@ from avatarcap_tpu_torch.ops.knn import (approx_lbs_weights, knn,
                                          sample_distance_volume)
 from avatarcap_tpu_torch.ops.marching_cubes import marching_tets
 from avatarcap_tpu_torch.ops.volume_render import linspace01
+from avatarcap_tpu_torch.parallel.mesh import AXIS, canonical_device
 from avatarcap_tpu_torch.pipeline.avatar import (
     NEAR_SMPL_DIST, AvatarStatics, FrameInputs, compute_pose_features,
     grid_pose_features, pack_fused_query_weights, query_occupancy,
@@ -278,8 +282,8 @@ def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
     volume-edge keys with ``with_edge_ids``)."""
     X, Y, Z = grid.vol_res
     vol = volume_flat.reshape(X, Y, Z)
-    voxel = (bounds[1] - bounds[0]) / torch.tensor(
-        [X, Y, Z], dtype=bounds.dtype, device=bounds.device)
+    voxel = (bounds[1] - bounds[0]) / device_constant(
+        [X, Y, Z], bounds.device, bounds.dtype)
     mesh = marching_tets(vol, iso, bounds[0], voxel, max_tris=max_tris,
                          max_active=max_active, with_edge_ids=with_edge_ids)
     valid = torch.arange(max_tris, device=vol.device) < mesh.num_tris
@@ -293,8 +297,8 @@ def anchor_distances(ro: torch.Tensor, rd: torch.Tensor, near: float,
     """Distance to the nearest body vertex at A uniform depth anchors,
     linspace(near, far, A), per ray: (R, 3) rays -> (R, A). The masking
     data of near_flag_mode="ray" (K3 interpolates it per sample)."""
-    za = torch.as_tensor(np.linspace(near, far, n_anchors).astype(np.float32),
-                         device=ro.device)
+    za = device_constant(np.linspace(near, far, n_anchors).astype(np.float32),
+                         ro.device)
     pts = ro[:, None, :] + rd[:, None, :] * za[None, :, None]   # (R, A, 3)
     d2, _ = knn(pts.reshape(-1, 3), smpl_vertices, k=1, chunk=65536)
     return torch.sqrt(d2[:, 0]).reshape(ro.shape[0], n_anchors)
@@ -318,7 +322,7 @@ def anchored_near_flags(ro: torch.Tensor, rd: torch.Tensor, near: float,
     W[np.arange(n_samples), seg + 1] = w1
     d = anchor_distances(ro, rd, near, far, smpl_vertices,
                          n_anchors=n_anchors)
-    return d @ torch.as_tensor(W.T, device=d.device) < threshold
+    return d @ device_constant(W.T, d.device) < threshold
 
 
 def _dedupe_soup(tri_valid: torch.Tensor, edge_ids: torch.Tensor,
@@ -360,6 +364,26 @@ def _dedupe_soup(tri_valid: torch.Tensor, edge_ids: torch.Tensor,
     return rep[:capacity], uo, valid_v, valid_u, overflow
 
 
+class _Shard(NamedTuple):
+    """What one mesh device needs to evaluate its slab of query points:
+    the networks (f32 path) or packed weights (kernels) and the statics,
+    on that device."""
+
+    device: torch.device
+    avatar: GeoTexAvatar
+    recon: Optional[ReconNetwork]
+    statics: AvatarStatics
+    packed_query: Optional[dict]
+    packed_recon: Optional[tuple]
+
+
+def _on(device: torch.device):
+    """Make ``device`` the current card (its current stream takes the
+    kernels' launches); nothing on the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class AvatarCapture:
     """Per-frame capture orchestrator over plain stage functions.
 
@@ -369,20 +393,36 @@ class AvatarCapture:
       recon: the port's ReconNetwork, needed by ``w_recon=True`` frames.
       tex_avatar: an optional texture-finetuned GeoTexAvatar for the NeRF
         colors; None = the geometry avatar.
-      device: None = the card (raises without one); "cpu" runs the plain
-        PyTorch path everywhere, with the kernels' plain versions.
+      device: None = the card (raises without one), or the first device of
+        ``shard_mesh``; "cpu" runs the plain PyTorch path everywhere, with
+        the kernels' plain versions.
+      shard_mesh: optional mesh (parallel.mesh.make_mesh) whose devices
+        each evaluate one slab of the points of the frame's two implicit
+        grid queries (the avatar's and ReconNet's, coarse and refine
+        levels): one frame's latency, not throughput, over several
+        devices. Needs ``hierarchical_query``; every capacity the slabs
+        split must divide by the mesh size. The capture lives on the first
+        device, which gathers the slabs in order. Networks or packed
+        weights (and their weight images) are copied to the other devices
+        here; per frame, only the pose-feature columns (or feature maps)
+        are. A device may repeat, e.g. ``[cuda:0, cuda:0]``.
+      shard_axis: the mesh axis of the slabs; the port's meshes have the
+        one axis "data".
     """
 
     def __init__(self, avatar: GeoTexAvatar, statics: AvatarStatics,
                  grid: CaptureGrid, recon: Optional[ReconNetwork] = None,
                  tex_avatar: Optional[GeoTexAvatar] = None,
-                 options: CaptureOptions = CaptureOptions(), device=None):
+                 options: CaptureOptions = CaptureOptions(), device=None,
+                 shard_mesh=None, shard_axis: str = AXIS):
         o = options
         if o.normal_mode != "trilinear":
             raise NotImplementedError(
                 f"normal_mode={o.normal_mode!r} is not ported yet; the port "
                 "has 'trilinear' only")
-        self.device = resolve_device(device)
+        if shard_mesh is not None and device is None:
+            device = shard_mesh[0]
+        self.device = canonical_device(resolve_device(device))
         self.opt = o
         self.avatar = avatar.to(self.device).eval()
         self.tex_avatar = (tex_avatar.to(self.device).eval()
@@ -439,6 +479,93 @@ class AvatarCapture:
                     f"query-grid voxel ({voxel * 1000:.1f} mm) to be "
                     f"<= 1.5x skin_voxel ({o.skin_voxel * 1000:.1f} mm); "
                     "use skin_row_group=1 or a finer grid")
+        self._neck_xys: Dict[int, tuple] = {}
+        self._local = _Shard(self.device, self.avatar, self.recon,
+                             self.statics, self.packed_query,
+                             self.packed_recon)
+        self.shard_mesh = None
+        self._shards = None
+        if shard_mesh is not None:
+            self._init_shards(shard_mesh, shard_axis)
+
+    def _init_shards(self, shard_mesh, shard_axis: str):
+        """Check the mesh against the capacities the slabs split (JAX's
+        three divisibility checks) and copy what each device needs."""
+        o, g = self.opt, self.grid
+        if shard_axis != AXIS:
+            raise ValueError(f"the port's meshes have the one axis {AXIS!r}, "
+                             f"got {shard_axis!r}")
+        if not o.hierarchical_query:
+            raise ValueError("point sharding wraps the hierarchical query's "
+                             "value functions: it needs "
+                             "hierarchical_query=True")
+        mesh = tuple(canonical_device(d) for d in shard_mesh)
+        if mesh[0] != self.device:
+            raise ValueError(f"the capture lives on the mesh's first device "
+                             f"{mesh[0]}, not on {self.device}")
+        n_cells = int(np.prod(g.vol_res))
+        for name, cap in (
+                ("coarse capacity", g.c_pts.shape[0]),
+                ("refine_capacity", min(o.refine_capacity, n_cells)),
+                ("recon_refine_capacity",
+                 min(o.recon_refine_capacity or o.refine_capacity,
+                     n_cells))):
+            if cap % len(mesh):
+                raise ValueError(f"{name}={cap} must divide the "
+                                 f"{len(mesh)}-way point shard")
+        self.shard_mesh = mesh
+        self._shards = [self._local if d == self.device else self._shard_on(d)
+                        for d in mesh]
+
+    def _shard_on(self, device: torch.device) -> _Shard:
+        """Copies of the query networks (f32 path) or of their packed
+        weights and weight images (kernels) on another mesh device."""
+        from avatarcap_tpu_torch.ops import fused_query as fq
+        fused = self.opt.use_fused_query
+
+        def packed_copy(packed):
+            return tuple(t.to(device) for t in packed)
+
+        avatar = None if fused else copy.deepcopy(self.avatar).to(device)
+        recon = (copy.deepcopy(self.recon).to(device)
+                 if self.recon is not None and not fused else None)
+        with torch.inference_mode(), _on(device):
+            pq = ({k: packed_copy(v) for k, v in self.packed_query.items()}
+                  if fused else None)
+            pr = (packed_copy(self.packed_recon)
+                  if fused and self.packed_recon is not None else None)
+            if device.type == "cuda" and fused:
+                # the wrappers find these images in their cache
+                fq._cached_weight_image(pq["offset"], pq["template"])
+                if pr is not None:
+                    fq._cached_recon_image(pr)
+        return _Shard(device, avatar, recon, self.statics.to(device), pq, pr)
+
+    def _sharded(self, make_vf, *frame_tensors):
+        """A ``(pts (N, 3), fine_flat_idx (N,)) -> (N,)`` value function
+        of the hierarchical query: ``make_vf(shard, *tensors)`` builds it on
+        one device. Without a shard mesh, on the capture's device; with
+        one, the points split into one contiguous slab per mesh device
+        (each launched under that device, its frame tensors copied there
+        once), and the slabs' values are gathered in order onto the first
+        device."""
+        if self._shards is None:
+            return make_vf(self._local, *frame_tensors)
+        parts = [(s.device, make_vf(s, *(t.to(s.device, non_blocking=True)
+                                         for t in frame_tensors)))
+                 for s in self._shards]
+
+        def vf(pts, fidx):
+            n = pts.shape[0] // len(parts)
+            outs = []
+            for i, (dev, f) in enumerate(parts):
+                with _on(dev):
+                    outs.append(f(pts[i * n:(i + 1) * n].to(
+                        dev, non_blocking=True),
+                        fidx[i * n:(i + 1) * n].to(dev, non_blocking=True)))
+            return torch.cat([o.to(self.device, non_blocking=True)
+                              for o in outs])
+        return vf
 
     # -- stages --------------------------------------------------------
 
@@ -460,14 +587,19 @@ class AvatarCapture:
                                              dtype=torch.bfloat16,
                                              columns=True)
 
-                def vf(pts, fidx):
-                    pf = pf_cols[fidx.long() // Z]
-                    return warp_template_query(pk["offset"], pk["template"],
-                                               pts, pf)["occ"][:, 0]
+                def make_vf(shard, cols):
+                    spk = shard.packed_query
+
+                    def vf(pts, fidx):
+                        return warp_template_query(
+                            spk["offset"], spk["template"], pts,
+                            cols[fidx.long() // Z])["occ"][:, 0]
+                    return vf
 
                 vol, q_ovf = hierarchical_volume(
-                    vf, g, st.cano_bounds, g.c_prior, g.prior_volume,
-                    o.iso_value, o.hier_alpha, o.refine_capacity)
+                    self._sharded(make_vf, pf_cols), g, st.cano_bounds,
+                    g.c_prior, g.prior_volume, o.iso_value, o.hier_alpha,
+                    o.refine_capacity)
             else:
                 pf = grid_pose_features(feat, st, g.vol_res, g.valid_idx,
                                         dtype=torch.bfloat16)
@@ -476,17 +608,22 @@ class AvatarCapture:
                 vol = _scatter_set(g.prior_volume, g.valid_idx,
                                    qout["occ"][:, 0])
         else:
-            def vf_f32(pts, fidx):
-                out = query_occupancy(self.avatar, pts[None], feat, st)
-                return out["cano_pts_ov"][0, :, 0]
+            def make_vf_f32(shard, shard_feat):
+                def vf(pts, fidx):
+                    out = query_occupancy(shard.avatar, pts[None], shard_feat,
+                                          shard.statics)
+                    return out["cano_pts_ov"][0, :, 0]
+                return vf
 
             if o.hierarchical_query:
                 vol, q_ovf = hierarchical_volume(
-                    vf_f32, g, st.cano_bounds, g.c_prior, g.prior_volume,
-                    o.iso_value, o.hier_alpha, o.refine_capacity)
+                    self._sharded(make_vf_f32, feat), g, st.cano_bounds,
+                    g.c_prior, g.prior_volume, o.iso_value, o.hier_alpha,
+                    o.refine_capacity)
             else:
                 vol = _scatter_set(g.prior_volume, g.valid_idx,
-                                   vf_f32(g.valid_pts, None))
+                                   make_vf_f32(self._local, feat)(
+                                       g.valid_pts, None))
         mesh = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
                              o.max_active, with_edge_ids=want_edge_ids
                              and o.nerf_unique_capacity > 0)
@@ -570,8 +707,7 @@ class AvatarCapture:
         o = self.opt
         img_h, img_w = inferred_normal.shape[:2]
         fx, fy, cx, cy = (camera[k] for k in ("fx", "fy", "cx", "cy"))
-        proj = torch.as_tensor(gl_perspective_projection_matrix(
-            fx, fy, cx, cy, img_w, img_h, gl_space=False), device=self.device)
+        proj = self._projection(camera, img_h, img_w)
         return lift_image_normals(
             live_mesh.vertices.reshape(-1, 3, 3), valid, inferred_normal,
             pt_mats, w2c, proj, fx, fy, cx, cy, img_h, img_w,
@@ -608,18 +744,30 @@ class AvatarCapture:
             pf_cols = grid_pose_features(feat_map, st, g.vol_res,
                                          columns=True)
 
-            def vf(pts, fidx):
-                z = pts[:, 2:3] - center[2]
-                return decode(pk, torch.cat([pf_cols[fidx.long() // Z], z],
-                                            -1))
+            def make_vf(shard, cols):
+                spk = shard.packed_recon
+                sc = shard.statics.cano_smpl_center
+
+                def vf(pts, fidx):
+                    z = pts[:, 2:3] - sc[2]
+                    return decode(spk, torch.cat([cols[fidx.long() // Z], z],
+                                                 -1))
+                return vf
+            vf = self._sharded(make_vf, pf_cols)
         else:
-            def vf(pts, fidx):
-                return self.recon.decode_points(feat_map, pts[None],
-                                                center[None])[0]
+            def make_vf_f32(shard, shard_feat_map):
+                sc = shard.statics.cano_smpl_center
+
+                def vf(pts, fidx):
+                    return shard.recon.decode_points(shard_feat_map,
+                                                     pts[None], sc[None])[0]
+                return vf
 
             if not o.hierarchical_query:
                 return _scatter_set(prior01, g.valid_idx,
-                                    vf(g.valid_pts, None)), None
+                                    make_vf_f32(self._local, feat_map)(
+                                        g.valid_pts, None)), None
+            vf = self._sharded(make_vf_f32, feat_map)
         return hierarchical_volume(vf, g, st.cano_bounds, c_prior01, prior01,
                                    0.5, o.hier_alpha, capacity)
 
@@ -815,16 +963,63 @@ class AvatarCapture:
         return (torch.where(valid_r[:, None], rgb_r, torch.zeros_like(rgb_r)),
                 overflow)
 
+    def _projection(self, camera: Dict[str, float], img_h: int,
+                    img_w: int) -> torch.Tensor:
+        """The capture camera's perspective projection on the device, copied
+        once per camera and image size."""
+        fx, fy, cx, cy = (camera[k] for k in ("fx", "fy", "cx", "cy"))
+        return device_constant(gl_perspective_projection_matrix(
+            fx, fy, cx, cy, img_w, img_h, gl_space=False), self.device)
+
     def _neck_xy(self, neck_vertex_idx: int):
         """(x, y) of the neck vertex on the canonical front image (host
-        integers, numpy float32 arithmetic as in the JAX package)."""
-        neck_v = (self.statics.cano_smpl_vertices[neck_vertex_idx]
-                  .detach().cpu().numpy()
-                  - self.statics.cano_smpl_center.detach().cpu().numpy())
-        res = self.opt.render_res
-        neck_y = int((1.0 - neck_v[1]) / 2.0 * res)
-        neck_x = int((neck_v[0] - 1.0) / 2.0 * res) % res
-        return neck_x, neck_y
+        integers, numpy float32 arithmetic as in the JAX package), read
+        from the device once per vertex."""
+        hit = self._neck_xys.get(neck_vertex_idx)
+        if hit is None:
+            neck_v = (self.statics.cano_smpl_vertices[neck_vertex_idx]
+                      .detach().cpu().numpy()
+                      - self.statics.cano_smpl_center.detach().cpu().numpy())
+            res = self.opt.render_res
+            neck_y = int((1.0 - neck_v[1]) / 2.0 * res)
+            neck_x = int((neck_v[0] - 1.0) / 2.0 * res) % res
+            hit = self._neck_xys[neck_vertex_idx] = (neck_x, neck_y)
+        return hit
+
+    def replica(self, device) -> "AvatarCapture":
+        """This capture on another device (itself on its own): copies of
+        the networks, the statics and the grid (its coarse level included,
+        so nothing is read back), with the same options."""
+        device = canonical_device(device)
+        if device == self.device:
+            return self
+        if self.shard_mesh is not None:
+            raise ValueError("a point-sharded capture has no replicas; "
+                             "shard frames or points, not both")
+        tex = (copy.deepcopy(self.tex_avatar)
+               if self.tex_avatar is not self.avatar else None)
+        return AvatarCapture(
+            copy.deepcopy(self.avatar), self.statics, self.grid,
+            recon=copy.deepcopy(self.recon), tex_avatar=tex,
+            options=self.opt, device=device)
+
+    def upload(self, item: Dict[str, Any], inferred_normal=None):
+        """The item's per-frame arrays on the device, each copied from
+        pinned memory without waiting for the card: (FrameInputs, (J, 4, 4)
+        joint mats, inferred normal (H, W, 3) or None, w2c (4, 4) or
+        None)."""
+        def tensor(value):
+            if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+                return value.to(self.device, torch.float32)
+            return to_device(value, self.device, torch.float32)
+
+        frame = FrameInputs(
+            live_smpl_v=tensor(item["live_smpl_v"])[None],
+            cano2live_jnt_mats=tensor(item["cano2live_jnt_mats"])[None],
+            smpl_pos_map=tensor(item["smpl_pos_map"])[None])
+        return (frame, frame.cano2live_jnt_mats[0],
+                None if inferred_normal is None else tensor(inferred_normal),
+                tensor(item["w2c_RT"]) if "w2c_RT" in item else None)
 
     def process_frame(self, item: Dict[str, Any], w_recon: bool = True,
                       w_nerf: bool = False,
@@ -832,7 +1027,8 @@ class AvatarCapture:
                       neck_vertex_idx: Optional[int] = None,
                       camera: Optional[Dict[str, float]] = None,
                       timer=None) -> Dict[str, Any]:
-        """Run the capture stages for one dataset item.
+        """Run the capture stages for one dataset item: its upload, then
+        ``frame_body``.
 
         Args:
           item: live_smpl_v, cano2live_jnt_mats, smpl_pos_map and, for
@@ -856,18 +1052,33 @@ class AvatarCapture:
                 "process_frame(w_recon=True) needs a ReconNetwork (recon=) "
                 "and the inferred_normal, neck_vertex_idx and camera "
                 "arguments")
+        frame, jnt_mats, normal, w2c = self.upload(
+            item, inferred_normal if w_recon else None)
+        return self.frame_body(
+            frame, jnt_mats, normal, w2c, camera,
+            self._neck_xy(neck_vertex_idx) if w_recon else None,
+            w_recon=w_recon, w_nerf=w_nerf, timer=timer)
+
+    def frame_body(self, frame: FrameInputs, jnt_mats: torch.Tensor,
+                   inferred_normal: Optional[torch.Tensor],
+                   w2c: Optional[torch.Tensor],
+                   camera: Optional[Dict[str, float]],
+                   neck_xy: Optional[tuple], w_recon: bool = True,
+                   w_nerf: bool = False, timer=None) -> Dict[str, Any]:
+        """The per-frame pipeline on device tensors (the counterpart of the
+        JAX ``frame_body``), shared by ``process_frame`` and
+        pipeline/streaming.py. It reads nothing back to the host, so the
+        host may queue the next frame behind it (a ``timer`` that
+        synchronises, such as utils/timers.StageTimer, does).
+
+        Args:
+          frame: FrameInputs on the device; jnt_mats: (J, 4, 4).
+          inferred_normal (H, W, 3), w2c (4, 4), camera dict(fx, fy, cx,
+            cy) and neck_xy (host (x, y), ``_neck_xy``): for ``w_recon``.
+        Returns process_frame's dict.
+        """
         o = self.opt
-
-        def tensor(value):
-            return torch.as_tensor(value, dtype=torch.float32).to(
-                self.device)
-
         with torch.inference_mode():
-            frame = FrameInputs(
-                live_smpl_v=tensor(item["live_smpl_v"])[None],
-                cano2live_jnt_mats=tensor(item["cano2live_jnt_mats"])[None],
-                smpl_pos_map=tensor(item["smpl_pos_map"])[None])
-            jnt_mats = frame.cano2live_jnt_mats[0]
             with stage(timer, "geometry"):
                 cano_mesh, feat = self.avatar_geometry_stage(
                     frame, want_edge_ids=w_nerf)
@@ -878,9 +1089,8 @@ class AvatarCapture:
                 # their interpolation joins the shared attribute table
                 with stage(timer, "lift"):
                     proj_n_tris, lift_ovf = self.lift_normals_stage(
-                        live_mesh, cano_mesh.valid, pt_mats,
-                        tensor(inferred_normal), tensor(item["w2c_RT"]),
-                        camera)
+                        live_mesh, cano_mesh.valid, pt_mats, inferred_normal,
+                        w2c, camera)
                 with stage(timer, "cano_layers"):
                     (fri, bri, front_avatar_n, back_avatar_n, phong,
                      front_img_n, _) = self.cano_layers_stage(
@@ -898,8 +1108,7 @@ class AvatarCapture:
                 with stage(timer, "merge"):
                     if o.integrate_manner == "merge":
                         front_merged = merge_normal_images(
-                            front_avatar_n, front_img_n,
-                            self._neck_xy(neck_vertex_idx),
+                            front_avatar_n, front_img_n, neck_xy,
                             iter_num=o.fusion_iters)
                     else:
                         front_merged = merge_normal_images_cover(

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.render.raster import (RasterIndex, RasterOutput,
                                                interpolate, rasterize,
                                                rasterize_index_pair)
@@ -27,8 +28,7 @@ def phong_shade(cam_pos: torch.Tensor, cam_normal: torch.Tensor,
     """Per-pixel Phong of the reference shader: ambient .3, diffuse .7,
     specular 1, light (0, 0, 1) in camera space; material .85/.85/.1,
     shininess 10."""
-    ldir = torch.tensor([0.0, 0.0, 1.0], dtype=cam_pos.dtype,
-                        device=cam_pos.device)
+    ldir = device_constant([0.0, 0.0, 1.0], cam_pos.device, cam_pos.dtype)
     n = cam_normal / cam_normal.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     vdir = -cam_pos / cam_pos.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     i = -ldir

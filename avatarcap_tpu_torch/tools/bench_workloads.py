@@ -208,6 +208,40 @@ def build_capture_grid(statics: AvatarStatics,
     return CaptureGrid(valid_pts, valid_idx, prior, tuple(vol_res)), n_valid
 
 
+def build_capture_subject(device, vol_res=(384, 384, 128), dense=True,
+                          seed=0, options=None, img_res=512):
+    """The capture workload on ``device``: an AvatarCapture of random
+    networks drawn from generators seeded ``seed`` (avatar), ``seed + 1``
+    (ReconNet) and ``seed + 2`` (texture avatar) with ``options`` (default
+    CAPTURE_OPTIONS), an item (the toy body at rest, identity joint mats,
+    a N(0, 0.1) position map at 256^2 from the avatar's generator, the
+    bench camera's w2c), the production frame's keyword arguments
+    (inferred normal at img_res^2, neck vertex 0, camera) and the grid's
+    near-body node count. Returns (capture, item, recon_kw, n_valid)."""
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureOptions)
+    params, statics, v = toy_avatar_statics(dense=dense, device=device)
+    grid, n_valid = build_capture_grid(statics, vol_res)
+    gen = torch.Generator().manual_seed(seed)
+    avatar = random_avatar(gen)
+    recon = random_recon(torch.Generator().manual_seed(seed + 1))
+    tex = random_tex_avatar(avatar, torch.Generator().manual_seed(seed + 2))
+    capture = AvatarCapture(avatar, statics, grid, recon=recon,
+                            tex_avatar=tex,
+                            options=CaptureOptions(**(options
+                                                      or CAPTURE_OPTIONS)),
+                            device=device)
+    pos_map = torch.randn((256, 256, 6), generator=gen) * 0.1
+    w2c, camera, inferred = bench_camera(img_res)
+    item = {"live_smpl_v": v.astype(np.float32),
+            "cano2live_jnt_mats": np.tile(np.eye(4, dtype=np.float32),
+                                          (params.num_joints, 1, 1)),
+            "smpl_pos_map": pos_map.numpy(), "w2c_RT": w2c}
+    recon_kw = dict(inferred_normal=inferred, neck_vertex_idx=0,
+                    camera=camera)
+    return capture, item, recon_kw, n_valid
+
+
 def train_batch(params, cano_v: np.ndarray, center: np.ndarray,
                 batch_size: int = 4, n_rays: int = 1024, n_surf: int = 5000,
                 n_vol: int = 312, pos_map_res: int = 256,

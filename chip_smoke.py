@@ -47,25 +47,46 @@ Phases, each fatal on failure:
      timed frames with the launch counts read around each (2 K1, 2 K2 and
      2 K3 launches), the stage times, and one avatar-only textured frame
      (2 K1, 1 K3);
-  7. the avatar-only, the production and the textured production frame on
+  7. [sync]: the synchronising calls that torch.cuda.set_sync_debug_mode
+     reports inside AvatarCapture.frame_body, for the avatar-only, the
+     production and the textured production frame at full size; there must
+     be none;
+  8. [stream] (this slice's main path): 8 full-size textured production
+     frames of distinct poses through a process_frame loop and through
+     StreamingCapture.run_pipelined(lookahead=2), each timed (frames/s,
+     seconds a frame) with the launch counts set to 0 just before and read
+     just after (the pipelined run: 16 K1, 16 K2, 16 K3); the frames'
+     output hashes must agree between the two and differ between poses;
+     then the card's busy share over a third, profiled pipelined run
+     (torch.profiler: the union of the kernels' intervals over their
+     span);
+  9. [shard]: the production frame with AvatarCapture(shard_mesh=) over
+     every visible card and over two slabs on the first card, and
+     ShardedGridQuery on the small subject over the same two meshes, each
+     bit-equal to its unsharded counterpart;
+ 10. the avatar-only, the production and the textured production frame on
      a small subject on the card and on the CPU (f32 path and kernels),
      which must agree; the textured frame's colors through the kernels on
      the card also against the f32 path on the CPU;
-  8. the training phase (tools/bench_train.run);
-  9. the command line ([cli]): the port's generate_subject writes a
+ 11. the training phase (tools/bench_train.run);
+ 12. the command line ([cli]): the port's generate_subject writes a
      subject (the toy body's 6,752 vertices as an SMPL pkl, the canonical
      and one posed pose, 2 views, 512^2 images, 256^2 position maps,
      20,000 + 2,000 presampled points); cli.main -m train fits it for 2
      epochs and its epoch_latest/net.pt reads back through the test mode's
      loader; the test-mode grid (384 x 384 x 128: KNN band and inside
-     prior) is built and timed, and the inside test alone; cli.main -m test --nerf --save-avatar-mesh
-     --save-final-mesh --frame-idx 0 runs one full-width textured frame
-     with phase 2's networks saved as net.pt / recon_net.pt and the
-     capture options of phase 2, the launch counts set to 0 just before
-     and read just after (2 K1, 2 K2, 2 K3); the three JPEGs and two PLYs
-     must exist, the PLYs be finite with triangles, and the avatar PLY's
-     triangle count equal that of process_frame run directly on the same
-     dataset item and weights.
+     prior) is built and timed, and the inside test alone; cli.main -m
+     test --nerf --save-avatar-mesh --save-final-mesh runs the subject's
+     two full-width textured frames with phase 2's networks saved as
+     net.pt / recon_net.pt and the capture options of phase 2, the launch
+     counts set to 0 just before and read just after (4 K1, 4 K2, 4 K3);
+     the JPEGs and PLYs must exist, the PLYs be finite with triangles, and
+     frame 0's avatar PLY's triangle count equal that of process_frame run
+     directly on the same dataset item and weights; then the same with
+     --stream 2 (one pipelined batch of both frames), whose JPEGs must
+     equal the first run's byte for byte and whose PLYs must have its
+     triangle counts.
+The kernel table's launches are those of phase 8's pipelined run.
 Prints each kernel's TFLOP/s and the share of its measured time that its
 bound explains, the kernel table as one JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Writes
@@ -147,36 +168,12 @@ def build_kernels():
                         for k, v in report.items()}}
 
 
-def build_subject(device, vol_res=(384, 384, 128), dense=True, seed=0,
-                  options=None, img_res=512):
+def build_subject(device, **kw):
     """(AvatarCapture, item, production-frame kwargs, n_valid) for the
-    capture workload."""
-    import numpy as np
-    import torch
-    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
-                                                      CaptureOptions)
+    capture workload (tools/bench_workloads.build_capture_subject)."""
     from avatarcap_tpu_torch.tools.bench_workloads import (
-        CAPTURE_OPTIONS, bench_camera, build_capture_grid, random_avatar,
-        random_recon, random_tex_avatar, toy_avatar_statics)
-    params, statics, v = toy_avatar_statics(dense=dense, device=device)
-    grid, n_valid = build_capture_grid(statics, vol_res)
-    gen = torch.Generator().manual_seed(seed)
-    avatar = random_avatar(gen)
-    recon = random_recon(torch.Generator().manual_seed(seed + 1))
-    tex = random_tex_avatar(avatar, torch.Generator().manual_seed(seed + 2))
-    opts = CaptureOptions(**(options or CAPTURE_OPTIONS))
-    capture = AvatarCapture(avatar, statics, grid, recon=recon,
-                            tex_avatar=tex, options=opts, device=device)
-    pos_res = 256
-    pos_map = torch.randn((pos_res, pos_res, 6), generator=gen) * 0.1
-    w2c, camera, inferred = bench_camera(img_res)
-    item = {"live_smpl_v": v.astype(np.float32),
-            "cano2live_jnt_mats": np.tile(np.eye(4, dtype=np.float32),
-                                          (params.num_joints, 1, 1)),
-            "smpl_pos_map": pos_map.numpy(), "w2c_RT": w2c}
-    recon_kw = dict(inferred_normal=inferred, neck_vertex_idx=0,
-                    camera=camera)
-    return capture, item, recon_kw, n_valid
+        build_capture_subject)
+    return build_capture_subject(device, **kw)
 
 
 def weight_image_record(capture, device):
@@ -733,6 +730,19 @@ def _color_agreement(a, b, mesh_key, color_key, tol):
     return len(ia) / max(1, len(ub)), float(close.mean()) if len(ia) else 0.0
 
 
+def small_options():
+    """The small subject's options (48 x 48 x 32 grid, 128^2 renders):
+    the capture workload's, with capacities to match and one skinning row
+    per point."""
+    from avatarcap_tpu_torch.tools.bench_workloads import CAPTURE_OPTIONS
+    return dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
+                refine_capacity=1 << 16, recon_max_tris=0,
+                recon_max_active=0, recon_refine_capacity=0,
+                raster_max_candidates=0, render_res=128, skin_row_group=1,
+                fusion_iters=10, nerf_unique_capacity=1 << 14,
+                recon_unique_capacity=1 << 14, n_samples=4)
+
+
 def check_small_frame(device):
     """The avatar-only, the production and the textured production frame
     on a small subject, on the card and on the CPU, through the f32 module
@@ -745,13 +755,7 @@ def check_small_frame(device):
     are also held against that frame's colors."""
     import torch
     from avatarcap_tpu_torch.pipeline.capture import CaptureMesh
-    from avatarcap_tpu_torch.tools.bench_workloads import CAPTURE_OPTIONS
-    small = dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
-                 refine_capacity=1 << 16, recon_max_tris=0,
-                 recon_max_active=0, recon_refine_capacity=0,
-                 raster_max_candidates=0, render_res=128, skin_row_group=1,
-                 fusion_iters=10, nerf_unique_capacity=1 << 14,
-                 recon_unique_capacity=1 << 14, n_samples=4)
+    small = small_options()
     from avatarcap_tpu_torch.pipeline.avatar import compute_pose_features
     cpu = torch.device("cpu")
     outs = {}
@@ -839,6 +843,76 @@ def check_small_frame(device):
     return report
 
 
+def sync_phase(capture, item, recon_kw):
+    """[sync]: the synchronising calls inside frame_body in its three
+    forms at full size (tools/bench_stream.sync_counts); there must be
+    none."""
+    from avatarcap_tpu_torch.tools.bench_stream import sync_counts
+    rec = sync_counts(capture, item, recon_kw)
+    print("[sync] synchronising calls inside frame_body: " + ", ".join(
+        f"{k} {v['syncs']}" for k, v in rec.items()) + f" {json.dumps(rec)}")
+    if any(v["syncs"] for v in rec.values()):
+        raise AssertionError(f"frame_body waits for the card: {rec}")
+    return rec
+
+
+def stream_phase(capture, item, recon_kw):
+    """[stream]: 8 full-size textured production frames of distinct
+    poses through a process_frame loop and through run_pipelined
+    (lookahead 2), and the busy share of a profiled pipelined run
+    (tools/bench_stream.stream_phase). The frames' hashes must agree and
+    differ from pose to pose; the pipelined run launches 8 x 2 K1, K2 and
+    K3."""
+    from avatarcap_tpu_torch.tools.bench_stream import stream_phase as run
+    rec = run(capture, item, recon_kw)
+    for way in ("loop", "pipelined"):
+        r = rec[way]
+        print(f"[stream] {way}: {r['frames_per_s']:.3f} frames/s, "
+              f"{r['s_per_frame']:.4f} s a frame, launches {r['launches']}, "
+              f"sha1 {[h[:10] for h in r['sha1']]}")
+    prof = rec["profile"]
+    print(f"[stream] hashes agree {rec['hashes_agree']}, distinct poses "
+          f"{rec['distinct_poses']}; busy share of the card over the "
+          f"profiled pipelined run {prof['busy_share']} ({prof['kernels']} "
+          f"kernels, {prof['profiled_s']:.2f} s profiled)")
+    want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0}
+    if rec["pipelined"]["launches"] != want:
+        raise AssertionError(f"the pipelined stream launched "
+                             f"{rec['pipelined']['launches']}, expected "
+                             f"{want}")
+    if not rec["hashes_agree"] or not rec["distinct_poses"]:
+        raise AssertionError(
+            "the pipelined frames differ from the process_frame loop's, or "
+            f"the poses do not: {rec['loop']['sha1']} "
+            f"{rec['pipelined']['sha1']}")
+    return rec
+
+
+def shard_phase(capture, item, recon_kw, device):
+    """[shard]: the production frame point-sharded over every visible card
+    and over two slabs on the first, bit-equal to the unsharded frame; and
+    ShardedGridQuery on the small subject against the unsharded f32 query
+    (tools/bench_stream)."""
+    import torch
+    from avatarcap_tpu_torch.tools import bench_stream
+    rec = bench_stream.shard_phase(capture, item, recon_kw)
+    small, sitem, _, _ = build_subject(device, vol_res=(48, 48, 32),
+                                       dense=False, seed=1, img_res=128,
+                                       options=small_options())
+    rec["query"] = bench_stream.sharded_query_check(
+        small.avatar, small.statics, small.grid,
+        torch.as_tensor(sitem["smpl_pos_map"])[None], device)
+    rec["devices_used"] = torch.cuda.device_count()
+    print(f"[shard] {json.dumps(rec)}")
+    bad = [k for k, m in rec["meshes"].items() if not m["bit_equal"]]
+    bad += [k for k in ("all_cards", "two_slabs")
+            if not rec["query"][k]["bit_equal"]]
+    if bad:
+        raise AssertionError(f"sharded results differ from the unsharded "
+                             f"ones: {bad}")
+    return rec
+
+
 CLI_DIR = os.path.join(HERE, "build", "cli_phase")
 
 
@@ -869,8 +943,60 @@ def _ply_check(path):
     return len(f), bool(np.isfinite(v).all() and np.isfinite(n).all())
 
 
+def cli_stream_run(device, cfg, flags, outputs):
+    """The test CLI again with --stream 2 (both frames in one pipelined
+    batch), its launch counts set to 0 just before and read just after;
+    its JPEGs must equal the unstreamed run's byte for byte and its PLYs'
+    triangle counts theirs."""
+    import numpy as np
+    import yaml
+    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch.data.mesh_io import load_ply
+    cfg = dict(cfg, testing=dict(cfg["testing"], output_dir=os.path.join(
+        CLI_DIR, "out_stream")))
+    path = os.path.join(CLI_DIR, "config_stream.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    for fn in _wrappers().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = cli.main(["-c", path] + flags + ["--stream", "2"])
+    _sync(device)
+    rec = {"test_cli_s": time.perf_counter() - t0, "frames": records,
+           "launches": {k: fn.launches for k, fn in _wrappers().items()}}
+    if (len(records), rec["launches"]["k1"], rec["launches"]["k2"],
+            rec["launches"]["k3"]) != (2, 4, 4, 4):
+        raise AssertionError(f"the streamed CLI's {len(records)} frames "
+                             f"launched {rec['launches']}, expected 2 frames "
+                             "of 2 K1, 2 K2 and 2 K3")
+    a, b = (os.path.join(CLI_DIR, d) for d in ("out", "out_stream"))
+    rec["jpegs_equal"] = {
+        name: open(os.path.join(a, name), "rb").read()
+        == open(os.path.join(b, name), "rb").read() for name in outputs}
+    rec["ply"] = {}
+    for i in (0, 1):
+        for kind in ("avatar", "recon"):
+            name = f"{i:04d}_{kind}.ply"
+            pa, pb = (load_ply(os.path.join(d, name)) for d in (a, b))
+            rec["ply"][name] = {
+                "triangles": [len(pa[1]), len(pb[1])],
+                "bit_equal": all(np.array_equal(x, y)
+                                 for x, y in zip(pa, pb))}
+    bad = ([n for n, ok in rec["jpegs_equal"].items() if not ok]
+           + [n for n, r in rec["ply"].items()
+              if r["triangles"][0] != r["triangles"][1]])
+    print(f"[cli] --stream 2: {rec['test_cli_s']:.2f} s, launches "
+          f"{rec['launches']}, JPEGs equal {all(rec['jpegs_equal'].values())}"
+          f", PLYs bit-equal "
+          f"{all(r['bit_equal'] for r in rec['ply'].values())}")
+    if bad:
+        raise AssertionError(f"the streamed CLI's outputs differ from the "
+                             f"unstreamed run's: {bad}")
+    return rec
+
+
 def cli_phase(device, network_dirs):
-    """Phase 9 (see the module docstring). Returns the [cli] record."""
+    """Phase 12 (see the module docstring). Returns the [cli] record."""
     import numpy as np
     import torch
     import yaml
@@ -951,23 +1077,26 @@ def cli_phase(device, network_dirs):
     rec["near_body_nodes_stand_in_grid"] = 9238537
     rec["inside_prior_nodes"] = int((ds.prior_volume > 0).sum())
 
+    flags = ["-m", "test", "--nerf", "--save-avatar-mesh",
+             "--save-final-mesh"]
     for fn in _wrappers().values():
         fn.launches = 0
     t0 = time.perf_counter()
-    records = cli.main(["-c", cfg_path, "-m", "test", "--nerf",
-                        "--save-avatar-mesh", "--save-final-mesh",
-                        "--frame-idx", "0"])
+    records = cli.main(["-c", cfg_path] + flags)
     _sync(device)
     rec["test_cli_s"] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in _wrappers().items()}
-    (frame,) = records
-    rec.update(frame=frame, launches=launches)
-    if (launches["k1"], launches["k2"], launches["k3"]) != (2, 2, 2):
-        raise AssertionError(f"the CLI's frame launched {launches}, "
-                             "expected 2 K1, 2 K2 and 2 K3")
+    frame = records[0]
+    rec.update(frame=frame, frames=records, launches=launches)
+    if (len(records), launches["k1"], launches["k2"],
+            launches["k3"]) != (2, 4, 4, 4):
+        raise AssertionError(f"the CLI's {len(records)} frames launched "
+                             f"{launches}, expected 2 frames of 2 K1, 2 K2 "
+                             "and 2 K3")
     out = os.path.join(CLI_DIR, "out")
-    for name in ("cano_avatar/0000.jpg", "live_avatar/0000.jpg",
-                 "live_recon/0000.jpg"):
+    outputs = [f"{sub}/{i:04d}.jpg" for sub in ("cano_avatar", "live_avatar",
+                                                "live_recon") for i in (0, 1)]
+    for name in outputs:
         if not os.path.getsize(os.path.join(out, name)):
             raise AssertionError(f"the CLI wrote no {name}")
     plys = {k: _ply_check(os.path.join(out, f"0000_{k}.ply"))
@@ -975,6 +1104,7 @@ def cli_phase(device, network_dirs):
     rec["ply_triangles"] = {k: v[0] for k, v in plys.items()}
     if not all(n > 0 and ok for n, ok in plys.values()):
         raise AssertionError(f"the CLI's PLYs: {plys}")
+    rec["stream"] = cli_stream_run(device, cfg, flags, outputs)
 
     # process_frame on the same dataset item and weights
     c = load_config(cfg_path)
@@ -1047,8 +1177,14 @@ def main() -> int:
     device = torch.device("cuda")
     record = {}
     t_all = time.perf_counter()
+    phase_s = {}
+
+    def mark(name):
+        # wall seconds of each phase since the previous mark
+        phase_s[name] = time.perf_counter() - t_all - sum(phase_s.values())
 
     record["build"] = build_kernels()
+    mark("build")
 
     t0 = time.perf_counter()
     capture, item, recon_kw, n_valid = build_subject(device)
@@ -1056,6 +1192,7 @@ def main() -> int:
                          "grid_valid_points": n_valid,
                          "vol_res": list(capture.grid.vol_res)}
     print(f"[subject] {record['subject']}")
+    mark("subject")
 
     record["weight_image"] = weight_image_record(capture, device)
     print(f"[weight_image] {json.dumps(record['weight_image'])}")
@@ -1067,6 +1204,7 @@ def main() -> int:
     del recorded
     print(f"[k4] {json.dumps(k4)}")
     print(f"[k5] {json.dumps(k5)}")
+    mark("k1_k4_k5")
 
     run_frame(capture, item, device, w_recon=False)           # warm-up
     _, frame = run_frame(capture, item, device, w_recon=False)
@@ -1079,16 +1217,26 @@ def main() -> int:
     frame["stages"] = stage_times(capture, item, device, w_recon=False)
     record["frame"] = frame
     print(f"[frame] {json.dumps(frame)}")
+    mark("frame")
 
     k2 = production_frames(capture, item, recon_kw, device)
     print(f"[k2] {json.dumps(k2)}")
     frame_r = timed_production_frames(capture, item, recon_kw, device)
     record["frame_w_recon"] = frame_r
     print(f"[frame_w_recon] {json.dumps(frame_r)}")
+    mark("k2_frame_w_recon")
 
     k3, frame_n = textured_frames(capture, item, recon_kw, device)
     record["frame_w_nerf"] = frame_n
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
+    mark("k3_frame_w_nerf")
+
+    record["sync"] = sync_phase(capture, item, recon_kw)
+    mark("sync")
+    record["stream"] = stream_phase(capture, item, recon_kw)
+    mark("stream")
+    record["shard"] = shard_phase(capture, item, recon_kw, device)
+    mark("shard")
     network_dirs = save_cli_networks(capture)
     del capture
     from avatarcap_tpu_torch.ops.fused_query import weight_image
@@ -1097,15 +1245,19 @@ def main() -> int:
           "wrappers in this run (once per packed set and kernel family)")
     kerns = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5}
     for name, kern in kerns.items():
-        # launches of the textured production frame, the slice's main path
-        kern["launches"] = frame_n[f"{name}_launches"]
+        # launches of this slice's main path, the pipelined stream of
+        # textured production frames; the single frame's beside them
+        kern["launches"] = record["stream"]["pipelined"]["launches"][name]
+        kern["launches_textured_frame"] = frame_n[f"{name}_launches"]
 
     record["small_frame"] = check_small_frame(device)
     print(f"[small] {json.dumps(record['small_frame'])}")
+    mark("small")
 
     from avatarcap_tpu_torch.tools import bench_train
     record["train"] = bench_train.run(device)
     print(f"[train] {json.dumps(record['train'])}")
+    mark("train")
 
     import shutil
     try:
@@ -1113,6 +1265,9 @@ def main() -> int:
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     print(f"[cli] {json.dumps(record['cli'])}")
+    mark("cli")
+    record["phase_seconds"] = phase_s
+    print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -181,11 +181,53 @@ def test_single_view_frame_through_main(env):
     assert not (out / "0001_avatar.ply").exists()
 
 
-def test_stream_raises(env):
+def test_stream_raises(env, monkeypatch):
+    """--stream runs on the cards unless --device names the CPU: without
+    a card it raises (nothing falls back to the CPU)."""
     from avatarcap_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cli.main(["-c", env["cfg_path"], "-m", "test", "--device", "cpu",
-                  "--stream", "1"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-c", env["cfg_path"], "-m", "test", "--stream", "1"])
+
+
+def _config_with_output(env, name):
+    with open(env["cfg_path"]) as f:
+        cfg = yaml.safe_load(f)
+    cfg["testing"]["output_dir"] = str(env["root"] / name)
+    path = str(env["root"] / f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def test_stream_writes_the_same_files(env):
+    """-m test --nerf --stream 2 over both frames (one pipelined batch on
+    one device) writes the files of the run without --stream: the same
+    JPEG bytes and the same PLY triangles, vertices and colors."""
+    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch.data.mesh_io import load_ply
+    flags = ["-m", "test", "--device", "cpu", "--nerf", "--save-avatar-mesh",
+             "--save-final-mesh"]
+    loop = cli.main(["-c", _config_with_output(env, "loop")] + flags)
+    streamed = cli.main(["-c", _config_with_output(env, "stream")] + flags
+                        + ["--stream", "2"])
+    assert [r["data_idx"] for r in streamed] == [0, 1]
+    for a, b in zip(loop, streamed):
+        assert (a["num_tris"], a["recon_num_tris"], a["overflow"]) == (
+            b["num_tris"], b["recon_num_tris"], b["overflow"])
+        assert b["stages"] == {}
+    names = [f"{sub}/{i:04d}.jpg" for sub in ("cano_avatar", "live_avatar",
+                                              "live_recon") for i in (0, 1)]
+    for name in names:
+        assert ((env["root"] / "loop" / name).read_bytes()
+                == (env["root"] / "stream" / name).read_bytes()), name
+    for i in (0, 1):
+        for kind in ("avatar", "recon"):
+            a = load_ply(str(env["root"] / "loop" / f"{i:04d}_{kind}.ply"))
+            b = load_ply(str(env["root"] / "stream" / f"{i:04d}_{kind}.ply"))
+            assert len(a[1]) == len(b[1]) > 0
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
 
 
 def test_default_device_needs_a_card(env, monkeypatch):

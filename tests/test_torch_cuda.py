@@ -469,3 +469,118 @@ def test_cli_frame_on_card_matches_cpu(card, cli_subject, tmp_path):
         assert b > 0 and abs(a - b) <= 0.01 * b, (key, a, b)
     for dev in ("cuda", "cpu"):
         assert (tmp_path / dev / "0000_recon.ply").exists()
+
+
+def _small_capture(device, **extra):
+    """The small textured production subject of chip_smoke.py's card-vs-CPU
+    phase (48 x 48 x 32 grid, 128^2 renders, the capture workload's
+    texture options) on ``device``, and 3 items of distinct poses."""
+    import numpy as np
+    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
+                                                      CaptureOptions)
+    from avatarcap_tpu_torch.tools.bench_workloads import (
+        CAPTURE_OPTIONS, bench_camera, build_capture_grid, random_avatar,
+        random_recon, random_tex_avatar, toy_avatar_statics)
+    params, statics, v = toy_avatar_statics(dense=False, device=device)
+    grid, _ = build_capture_grid(statics, (48, 48, 32), pad_to=4096)
+    gen = torch.Generator().manual_seed(1)
+    avatar = random_avatar(gen)
+    opts = dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
+                refine_capacity=1 << 16, recon_max_tris=0,
+                recon_max_active=0, recon_refine_capacity=0,
+                raster_max_candidates=0, render_res=128, skin_row_group=1,
+                fusion_iters=10, nerf_unique_capacity=1 << 14,
+                recon_unique_capacity=1 << 14, n_samples=4)
+    cap = AvatarCapture(avatar, statics, grid,
+                        recon=random_recon(torch.Generator().manual_seed(2)),
+                        tex_avatar=random_tex_avatar(
+                            avatar, torch.Generator().manual_seed(3)),
+                        options=CaptureOptions(**opts), device=device,
+                        **extra)
+    w2c, camera, normal = bench_camera(128)
+    rs = np.random.RandomState(0)
+    items = []
+    for k in range(3):
+        jm = np.tile(np.eye(4, dtype=np.float32), (params.num_joints, 1, 1))
+        jm[:, :3, 3] = rs.uniform(-0.05, 0.05, (params.num_joints, 3))
+        items.append({"live_smpl_v": v.astype(np.float32),
+                      "cano2live_jnt_mats": jm, "w2c_RT": w2c,
+                      "smpl_pos_map": (rs.standard_normal((128, 128, 6))
+                                       * 0.1).astype(np.float32)})
+    kw = dict(inferred_normal=normal, neck_vertex_idx=0, camera=camera)
+    return cap, items, kw
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _same_bits(a, b) -> bool:
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+@pytest.mark.cuda
+def test_frame_body_makes_no_host_sync(card):
+    """The sync-free compaction, and frame_body in its three forms after
+    a warm-up frame, under torch.cuda.set_sync_debug_mode("error"): any
+    call that makes the host wait for the card raises."""
+    from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
+    cap, items, kw = _small_capture(card)
+    mask = torch.rand(100000, device=card) < 0.3
+    forms = [dict(w_recon=False, w_nerf=False),
+             dict(w_recon=True, w_nerf=False),
+             dict(w_recon=True, w_nerf=True)]
+    for form in forms:
+        cap.process_frame(items[0], **form, **kw)
+    frame, jnt, normal, w2c = cap.upload(items[1], kw["inferred_normal"])
+    neck = cap._neck_xy(kw["neck_vertex_idx"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, count, _ = compact_mask_indices(mask, 20000)
+        for form in forms:
+            cap.frame_body(frame, jnt, normal, w2c, kw["camera"], neck,
+                           **form)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = torch.nonzero(mask)[:, 0][:20000].to(torch.int32)
+    assert int(count) == int(mask.sum())
+    assert torch.equal(idx, ref)
+
+
+@pytest.mark.cuda
+def test_run_pipelined_equals_process_frame_on_card(card):
+    """3 distinct poses of the textured production frame, streamed with
+    lookahead 2 and one by one: the same bits."""
+    from avatarcap_tpu_torch.parallel import make_mesh
+    from avatarcap_tpu_torch.pipeline.streaming import StreamingCapture
+    cap, items, kw = _small_capture(card)
+    loop = [cap.process_frame(it, w_recon=True, w_nerf=True, **kw)
+            for it in items]
+    sc = StreamingCapture(cap, make_mesh([card]), camera=kw["camera"],
+                          image_size=(128, 128), w_recon=True, w_nerf=True)
+    streamed = sc.run_pipelined(items, [kw["inferred_normal"]] * 3,
+                                lookahead=2)
+    assert all(_same_bits(a, b) for a, b in zip(loop, streamed))
+    assert int(loop[0]["cano_mesh"].num_tris) > 0
+
+
+@pytest.mark.cuda
+def test_two_slab_sharded_frame_equals_unsharded_on_card(card):
+    """AvatarCapture(shard_mesh=[cuda:0, cuda:0]): both grid queries in
+    two slabs on one card. Each point's kernel arithmetic does not depend
+    on its tile, so the textured production frame keeps its bits."""
+    cap, items, kw = _small_capture(card)
+    ref = cap.process_frame(items[0], w_recon=True, w_nerf=True, **kw)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sharded, _, _ = _small_capture(card, shard_mesh=[dev, dev])
+    got = sharded.process_frame(items[0], w_recon=True, w_nerf=True, **kw)
+    assert _same_bits(got, ref)

@@ -34,6 +34,35 @@ def test_compaction_contract(max_out):
     assert gi.dtype == torch.int32
 
 
+@pytest.mark.parametrize("kind,max_out", [
+    ("empty", 64), ("full", 3000), ("full", 1000), ("at_capacity", None),
+    ("overflow", 100), ("overflow", 1), ("sparse_blocks", 512)])
+def test_compaction_edge_masks(kind, max_out):
+    """The sync-free compaction (a prefix sum and a scatter, the dropped
+    entries parked in a slot that is cut off) against JAX's on seeded
+    masks: empty, full, exactly at capacity, and overflowing, where many
+    entries share the parking slot and count exceeds max_out."""
+    from avatarcap_tpu.ops.compaction import compact_mask_indices
+    from avatarcap_tpu_torch.ops.compaction import compact_mask_indices as tc
+    rs = np.random.RandomState(len(kind) + (max_out or 0))
+    n = 3000
+    mask = {"empty": np.zeros(n, bool), "full": np.ones(n, bool),
+            "at_capacity": rs.rand(n) < 0.3,
+            "overflow": rs.rand(n) < 0.5,
+            "sparse_blocks": np.repeat(rs.rand(n // 100) < 0.4, 100)}[kind]
+    if max_out is None:
+        max_out = int(mask.sum())
+    ri, rc, rv = compact_mask_indices(jnp.asarray(mask), max_out)
+    gi, gc, gv = tc(_t(mask), max_out)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
+    assert int(gc) == int(rc) == mask.sum()
+    assert gc.shape == () and gc.dtype == torch.int32
+    assert gi.dtype == torch.int32 and gi.shape == (max_out,)
+    if kind == "overflow":
+        assert int(gc) > max_out
+
+
 def _field(shape, seed):
     """A smooth SDF-like field: a blob plus low-frequency noise."""
     rs = np.random.RandomState(seed)
