@@ -1,6 +1,7 @@
 """Iso-surface extraction (counterpart of avatarcap_tpu/ops/marching_cubes.py:
-``marching_tets`` with ``method="mc256"`` and ``gradient_normals=True``, the
-configuration of the capture frame).
+``marching_tets`` with ``method="mc256"``, its normals from the cube's
+trilinear gradient (``gradient_normals``) or from a Sobel gradient volume
+(``normal_volume``), and ``mesh_grid_coords``).
 
 The case tables are derived from the 6-tetrahedra cube split at import
 time, exactly as the JAX module derives them (no hand-typed LUT): the tet
@@ -10,8 +11,9 @@ triangle soup at static capacity ``max_tris`` (triangle j = vertices
 3j..3j+2), active cubes in ascending flat order, each emitting its case's
 triangles in table order, plus an ``overflow`` flag when either the
 triangle or the active-cube capacity is exceeded. The 8 corner values
-steer the within-edge interpolation as bf16 (as the JAX kernel carries
-them), while inside/outside decisions use the f32 values.
+(and a normal volume's 8 corner gradients) steer the within-edge
+interpolation as bf16 (as the JAX kernel carries them), while
+inside/outside decisions use the f32 values.
 """
 
 from __future__ import annotations
@@ -237,7 +239,8 @@ class Mesh(NamedTuple):
     """Fixed-capacity triangle soup; triangle i uses vertices 3i..3i+2."""
 
     vertices: torch.Tensor      # (3 * max_tris, 3) f32; padding = 0
-    normals: torch.Tensor       # (3 * max_tris, 3) unit; padding = 0
+    normals: torch.Tensor       # (3 * max_tris, 3) unit; padding = 0; None
+    # without gradient_normals or a normal_volume
     num_tris: torch.Tensor      # () int32
     overflow: torch.Tensor      # () bool
     edge_ids: torch.Tensor = None  # (3 * max_tris,) int32 volume-edge keys
@@ -246,11 +249,21 @@ class Mesh(NamedTuple):
 def marching_tets(volume: torch.Tensor, iso: float,
                   bounds_min: torch.Tensor, voxel_size: torch.Tensor,
                   max_tris: int = 1 << 20, max_active: int = 1 << 18,
+                  normal_volume: torch.Tensor = None,
+                  gradient_normals: bool = True,
                   with_edge_ids: bool = False) -> Mesh:
     """Extract the iso-surface of a dense (X, Y, Z) volume ("inside" is
     value > iso) with the 256-case tables. World vertex = index * voxel +
-    bounds_min + 0.5 voxel. Normals are the outward unit gradients of each
-    cube's own trilinear interpolant at the emitted vertex.
+    bounds_min + 0.5 voxel.
+
+    normal_volume: optional (X, Y, Z, 3) gradient volume
+      (ops/sobel.extract_normal_volume); Mesh.normals are then the outward
+      unit interpolations of the two edge-node gradients of each emitted
+      vertex, the gradients gathered for the active cubes only.
+    gradient_normals: without a normal volume, Mesh.normals are the
+      outward unit gradients of each cube's own trilinear interpolant at
+      the emitted vertex (the port's default; the JAX function's is
+      False); False leaves Mesh.normals None.
 
     with_edge_ids: also emit Mesh.edge_ids, the volume edge each soup
     vertex interpolates, (flat index of its lower node << 3) | axis code
@@ -313,18 +326,33 @@ def marching_tets(volume: torch.Tensor, iso: float,
     verts = torch.where(tri_valid[:, None, None], world,
                         torch.zeros_like(world))
 
-    c000, c100, c110, c010, c001, c101, c111, c011 = (
-        av_t[:, i:i + 1] for i in range(8))
-    x, y, z = q[..., 0], q[..., 1], q[..., 2]
-    gx = ((1 - y) * (1 - z) * (c100 - c000) + y * (1 - z) * (c110 - c010)
-          + (1 - y) * z * (c101 - c001) + y * z * (c111 - c011))
-    gy = ((1 - x) * (1 - z) * (c010 - c000) + x * (1 - z) * (c110 - c100)
-          + (1 - x) * z * (c011 - c001) + x * z * (c111 - c101))
-    gz = ((1 - x) * (1 - y) * (c001 - c000) + x * (1 - y) * (c101 - c100)
-          + (1 - x) * y * (c011 - c010) + x * y * (c111 - c110))
-    n = torch.stack([gx, gy, gz], -1) / voxel_size
-    n = -n / n.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    n = torch.where(tri_valid[:, None, None], n, torch.zeros_like(n))
+    n = None
+    if normal_volume is not None:
+        # the 8 corner gradients of each active cube, as bf16 (their
+        # direction error vanishes in the normalisation), then the two
+        # edge nodes' of each emitted vertex, interpolated along the edge
+        gv = normal_volume[aix[:, None] + corners[:, 0],
+                           aiy[:, None] + corners[:, 1],
+                           aiz[:, None] + corners[:, 2]]          # (A, 8, 3)
+        gv_t = gv.to(torch.bfloat16).float()[cube_of]             # (T, 8, 3)
+        na = gv_t.gather(1, ea[..., None].expand(-1, -1, 3))     # (T, 3, 3)
+        nb = gv_t.gather(1, eb[..., None].expand(-1, -1, 3))
+        n = na + (nb - na) * tt[..., None]
+    elif gradient_normals:
+        c000, c100, c110, c010, c001, c101, c111, c011 = (
+            av_t[:, i:i + 1] for i in range(8))
+        x, y, z = q[..., 0], q[..., 1], q[..., 2]
+        gx = ((1 - y) * (1 - z) * (c100 - c000) + y * (1 - z) * (c110 - c010)
+              + (1 - y) * z * (c101 - c001) + y * z * (c111 - c011))
+        gy = ((1 - x) * (1 - z) * (c010 - c000) + x * (1 - z) * (c110 - c100)
+              + (1 - x) * z * (c011 - c001) + x * z * (c111 - c101))
+        gz = ((1 - x) * (1 - y) * (c001 - c000) + x * (1 - y) * (c101 - c100)
+              + (1 - x) * y * (c011 - c010) + x * y * (c111 - c110))
+        n = torch.stack([gx, gy, gz], -1) / voxel_size
+    if n is not None:
+        n = -n / n.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        n = torch.where(tri_valid[:, None, None], n,
+                        torch.zeros_like(n)).reshape(max_tris * 3, 3)
 
     edge_ids = None
     if with_edge_ids:
@@ -338,7 +366,13 @@ def marching_tets(volume: torch.Tensor, iso: float,
                                torch.full_like(key, -1)).reshape(
                                    max_tris * 3).to(torch.int32)
 
-    return Mesh(vertices=verts.reshape(max_tris * 3, 3),
-                normals=n.reshape(max_tris * 3, 3),
+    return Mesh(vertices=verts.reshape(max_tris * 3, 3), normals=n,
                 num_tris=torch.clamp(total, max=max_tris).to(torch.int32),
                 overflow=overflow, edge_ids=edge_ids)
+
+
+def mesh_grid_coords(vertices: torch.Tensor,
+                     bounds: torch.Tensor) -> torch.Tensor:
+    """World vertices -> [-1, 1] normalised volume coordinates (x, y, z)
+    over ``bounds`` (2, 3) (reference utils/recon_util.py:66)."""
+    return 2.0 * (vertices - bounds[0]) / (bounds[1] - bounds[0]) - 1.0

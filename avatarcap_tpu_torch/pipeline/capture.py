@@ -3,7 +3,8 @@ the order of its ``frame_body``.
 
 Per frame: U-Net pose features -> coarse-to-fine canonical occupancy
 through kernel K1 (or the f32 module path) -> marching cubes with
-trilinear-gradient normals -> volume-LBS skinning to live space. With
+trilinear-gradient normals (or Sobel normals: ``normal_mode`` "mc_edge"
+or "sobel_sample") -> volume-LBS skinning to live space. With
 ``w_recon`` (the production frame): the image normals are lifted onto the
 mesh from the capture camera, the canonical front/back index passes
 interpolate them with the avatar normals and the Phong preview from one
@@ -17,9 +18,6 @@ own rays (``recon_color_mode="direct"``) or a nearest-neighbour transfer
 from the avatar's colors. The stage functions keep the JAX stages' static
 capacities, ascending compaction order and the aggregate ``overflow``
 bit, so meshes and colors compare slot for slot with the JAX frame.
-
-Not ported yet (they raise ``NotImplementedError``): the ``mc_edge`` and
-``sobel_sample`` normal modes.
 """
 
 from __future__ import annotations
@@ -51,7 +49,10 @@ from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
 from avatarcap_tpu_torch.ops.knn import (approx_lbs_weights, knn,
                                          near_distance_volume,
                                          sample_distance_volume)
-from avatarcap_tpu_torch.ops.marching_cubes import marching_tets
+from avatarcap_tpu_torch.ops.marching_cubes import (marching_tets,
+                                                    mesh_grid_coords)
+from avatarcap_tpu_torch.ops.sobel import (extract_normal_volume,
+                                           sample_volume_normals)
 from avatarcap_tpu_torch.ops.volume_render import linspace01
 from avatarcap_tpu_torch.parallel.mesh import AXIS, canonical_device
 from avatarcap_tpu_torch.pipeline.avatar import (
@@ -276,18 +277,43 @@ def _knn_chunk(database: torch.Tensor) -> int:
     return max(1, min(16384, (1 << 26) // max(1, database.shape[0])))
 
 
+NORMAL_MODES = ("trilinear", "mc_edge", "sobel_sample")
+
+
 def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
-                  max_active, with_edge_ids: bool = False):
-    """Volume -> mesh with trilinear-gradient normals (and the soup's
-    volume-edge keys with ``with_edge_ids``)."""
+                  max_active, normal_mode: str = "trilinear",
+                  with_edge_ids: bool = False):
+    """Volume -> mesh and its normals (and the soup's volume-edge keys with
+    ``with_edge_ids``; reference main.py:357-375). ``normal_mode``:
+    "trilinear", the gradient of each cube's trilinear interpolant;
+    "mc_edge", the Sobel node gradients interpolated along each emitted
+    vertex's edge inside the extraction; "sobel_sample", the Sobel volume
+    resampled trilinearly at every soup vertex, as the reference does
+    (utils/recon_util.py:32-48)."""
     X, Y, Z = grid.vol_res
     vol = volume_flat.reshape(X, Y, Z)
     voxel = (bounds[1] - bounds[0]) / device_constant(
         [X, Y, Z], bounds.device, bounds.dtype)
-    mesh = marching_tets(vol, iso, bounds[0], voxel, max_tris=max_tris,
-                         max_active=max_active, with_edge_ids=with_edge_ids)
+    kw = dict(max_tris=max_tris, max_active=max_active,
+              with_edge_ids=with_edge_ids)
+    if normal_mode == "trilinear":
+        mesh = marching_tets(vol, iso, bounds[0], voxel, **kw)
+        normals = mesh.normals
+    elif normal_mode == "mc_edge":
+        mesh = marching_tets(vol, iso, bounds[0], voxel,
+                             normal_volume=extract_normal_volume(vol, voxel),
+                             **kw)
+        normals = mesh.normals
+    elif normal_mode == "sobel_sample":
+        mesh = marching_tets(vol, iso, bounds[0], voxel,
+                             gradient_normals=False, **kw)
+        normals = sample_volume_normals(
+            vol, voxel, mesh_grid_coords(mesh.vertices, bounds))
+    else:
+        raise ValueError(f"normal_mode={normal_mode!r}: one of "
+                         f"{NORMAL_MODES}")
     valid = torch.arange(max_tris, device=vol.device) < mesh.num_tris
-    return CaptureMesh(mesh.vertices, mesh.normals, mesh.num_tris, valid,
+    return CaptureMesh(mesh.vertices, normals, mesh.num_tris, valid,
                        mesh.overflow, mesh.edge_ids)
 
 
@@ -416,10 +442,9 @@ class AvatarCapture:
                  options: CaptureOptions = CaptureOptions(), device=None,
                  shard_mesh=None, shard_axis: str = AXIS):
         o = options
-        if o.normal_mode != "trilinear":
-            raise NotImplementedError(
-                f"normal_mode={o.normal_mode!r} is not ported yet; the port "
-                "has 'trilinear' only")
+        if o.normal_mode not in NORMAL_MODES:
+            raise ValueError(f"normal_mode={o.normal_mode!r}: one of "
+                             f"{NORMAL_MODES}")
         if shard_mesh is not None and device is None:
             device = shard_mesh[0]
         self.device = canonical_device(resolve_device(device))
@@ -569,6 +594,56 @@ class AvatarCapture:
 
     # -- stages --------------------------------------------------------
 
+    def avatar_value_fn(self, feat: torch.Tensor):
+        """The avatar's field on the pose features ``feat`` as the
+        hierarchical query's ``(pts (N, 3), fine_flat_idx (N,)) -> (N,)``
+        value function: K1 on the grid's bf16 pose-feature columns, or the
+        f32 module path; one slab per mesh device with a shard mesh."""
+        o, g, st = self.opt, self.grid, self.statics
+        Z = g.vol_res[2]
+        if o.use_fused_query:
+            pf_cols = grid_pose_features(feat, st, g.vol_res,
+                                         dtype=torch.bfloat16, columns=True)
+
+            def make_vf(shard, cols):
+                spk = shard.packed_query
+
+                def vf(pts, fidx):
+                    return warp_template_query(
+                        spk["offset"], spk["template"], pts,
+                        cols[fidx.long() // Z])["occ"][:, 0]
+                return vf
+            return self._sharded(make_vf, pf_cols)
+
+        def make_vf_f32(shard, shard_feat):
+            def vf(pts, fidx):
+                out = query_occupancy(shard.avatar, pts[None], shard_feat,
+                                      shard.statics)
+                return out["cano_pts_ov"][0, :, 0]
+            return vf
+        return self._sharded(make_vf_f32, feat)
+
+    def avatar_volume(self, feat: torch.Tensor):
+        """The avatar's canonical occupancy over the grid on the pose
+        features ``feat`` (1, H, W, C): coarse-to-fine through
+        avatar_value_fn, or every near-body node at once. Returns (vol_flat
+        (X*Y*Z,), query overflow () or None)."""
+        o, g, st = self.opt, self.grid, self.statics
+        if o.hierarchical_query:
+            return hierarchical_volume(
+                self.avatar_value_fn(feat), g, st.cano_bounds, g.c_prior,
+                g.prior_volume, o.iso_value, o.hier_alpha, o.refine_capacity)
+        if o.use_fused_query:
+            pk = self.packed_query
+            pf = grid_pose_features(feat, st, g.vol_res, g.valid_idx,
+                                    dtype=torch.bfloat16)
+            occ = warp_template_query(pk["offset"], pk["template"],
+                                      g.valid_pts, pf)["occ"][:, 0]
+        else:
+            occ = query_occupancy(self.avatar, g.valid_pts[None], feat,
+                                  st)["cano_pts_ov"][0, :, 0]
+        return _scatter_set(g.prior_volume, g.valid_idx, occ), None
+
     def avatar_geometry_stage(self, frame: FrameInputs,
                               want_edge_ids: bool = False):
         """Pose features -> canonical occupancy volume -> mesh (with its
@@ -577,55 +652,11 @@ class AvatarCapture:
         o = self.opt
         g = self.grid
         st = self.statics
-        Z = g.vol_res[2]
         feat = compute_pose_features(self.avatar, frame.smpl_pos_map)
-        q_ovf = None
-        if o.use_fused_query:
-            pk = self.packed_query
-            if o.hierarchical_query:
-                pf_cols = grid_pose_features(feat, st, g.vol_res,
-                                             dtype=torch.bfloat16,
-                                             columns=True)
-
-                def make_vf(shard, cols):
-                    spk = shard.packed_query
-
-                    def vf(pts, fidx):
-                        return warp_template_query(
-                            spk["offset"], spk["template"], pts,
-                            cols[fidx.long() // Z])["occ"][:, 0]
-                    return vf
-
-                vol, q_ovf = hierarchical_volume(
-                    self._sharded(make_vf, pf_cols), g, st.cano_bounds,
-                    g.c_prior, g.prior_volume, o.iso_value, o.hier_alpha,
-                    o.refine_capacity)
-            else:
-                pf = grid_pose_features(feat, st, g.vol_res, g.valid_idx,
-                                        dtype=torch.bfloat16)
-                qout = warp_template_query(pk["offset"], pk["template"],
-                                           g.valid_pts, pf)
-                vol = _scatter_set(g.prior_volume, g.valid_idx,
-                                   qout["occ"][:, 0])
-        else:
-            def make_vf_f32(shard, shard_feat):
-                def vf(pts, fidx):
-                    out = query_occupancy(shard.avatar, pts[None], shard_feat,
-                                          shard.statics)
-                    return out["cano_pts_ov"][0, :, 0]
-                return vf
-
-            if o.hierarchical_query:
-                vol, q_ovf = hierarchical_volume(
-                    self._sharded(make_vf_f32, feat), g, st.cano_bounds,
-                    g.c_prior, g.prior_volume, o.iso_value, o.hier_alpha,
-                    o.refine_capacity)
-            else:
-                vol = _scatter_set(g.prior_volume, g.valid_idx,
-                                   make_vf_f32(self._local, feat)(
-                                       g.valid_pts, None))
+        vol, q_ovf = self.avatar_volume(feat)
         mesh = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
-                             o.max_active, with_edge_ids=want_edge_ids
+                             o.max_active, o.normal_mode,
+                             with_edge_ids=want_edge_ids
                              and o.nerf_unique_capacity > 0)
         if q_ovf is not None:
             mesh = mesh._replace(overflow=mesh.overflow | q_ovf)
@@ -714,34 +745,16 @@ class AvatarCapture:
             window=o.cano_window, big_tris=o.live_big_tris,
             max_candidates=o.raster_max_candidates)
 
-    def recon_volume(self, feat_map: torch.Tensor, decode=recon_decode):
-        """ReconNet occupancy over the grid from the HGFilter feature map
-        (1, Hf, Wf, C). The occupancy iso level is 0.5, so the [-1, 1]
-        prior is rescaled to [0, 1].
-
-        Args:
-          decode: the fused path's (packed, feats (N, 33)) -> (N,) decoder,
-            K2's wrapper (a caller may wrap it to see each launch's
-            inputs).
-        Returns (vol_flat (X*Y*Z,), query overflow () or None).
-        """
-        o = self.opt
-        g = self.grid
-        st = self.statics
+    def recon_value_fn(self, feat_map: torch.Tensor, decode=recon_decode):
+        """ReconNet's occupancy on the HGFilter feature map ``feat_map``
+        (1, Hf, Wf, C) as the hierarchical query's value function: K2
+        (``decode``, its wrapper; a caller may wrap it to see each launch's
+        inputs) on [the grid's pose-feature columns, z], or the f32
+        decoder; one slab per mesh device with a shard mesh."""
+        o, g = self.opt, self.grid
         Z = g.vol_res[2]
-        prior01 = 0.5 * (g.prior_volume + 1.0)
-        c_prior01 = (0.5 * (g.c_prior + 1.0) if o.hierarchical_query
-                     else None)
-        capacity = o.recon_refine_capacity or o.refine_capacity
-        center = st.cano_smpl_center
         if o.use_fused_query:
-            pk = self.packed_recon
-            if not o.hierarchical_query:
-                pf = grid_pose_features(feat_map, st, g.vol_res, g.valid_idx)
-                z = g.valid_pts[:, 2:3] - center[2]
-                return _scatter_set(prior01, g.valid_idx,
-                                    decode(pk, torch.cat([pf, z], -1))), None
-            pf_cols = grid_pose_features(feat_map, st, g.vol_res,
+            pf_cols = grid_pose_features(feat_map, self.statics, g.vol_res,
                                          columns=True)
 
             def make_vf(shard, cols):
@@ -753,23 +766,45 @@ class AvatarCapture:
                     return decode(spk, torch.cat([cols[fidx.long() // Z], z],
                                                  -1))
                 return vf
-            vf = self._sharded(make_vf, pf_cols)
-        else:
-            def make_vf_f32(shard, shard_feat_map):
-                sc = shard.statics.cano_smpl_center
+            return self._sharded(make_vf, pf_cols)
 
-                def vf(pts, fidx):
-                    return shard.recon.decode_points(shard_feat_map,
-                                                     pts[None], sc[None])[0]
-                return vf
+        def make_vf_f32(shard, shard_feat_map):
+            sc = shard.statics.cano_smpl_center
 
-            if not o.hierarchical_query:
-                return _scatter_set(prior01, g.valid_idx,
-                                    make_vf_f32(self._local, feat_map)(
-                                        g.valid_pts, None)), None
-            vf = self._sharded(make_vf_f32, feat_map)
-        return hierarchical_volume(vf, g, st.cano_bounds, c_prior01, prior01,
-                                   0.5, o.hier_alpha, capacity)
+            def vf(pts, fidx):
+                return shard.recon.decode_points(shard_feat_map, pts[None],
+                                                 sc[None])[0]
+            return vf
+        return self._sharded(make_vf_f32, feat_map)
+
+    def recon_volume(self, feat_map: torch.Tensor, decode=recon_decode):
+        """ReconNet occupancy over the grid from the HGFilter feature map
+        (1, Hf, Wf, C). The occupancy iso level is 0.5, so the [-1, 1]
+        prior is rescaled to [0, 1].
+
+        Args:
+          decode: the fused path's (packed, feats (N, 33)) -> (N,) decoder,
+            K2's wrapper (see recon_value_fn).
+        Returns (vol_flat (X*Y*Z,), query overflow () or None).
+        """
+        o = self.opt
+        g = self.grid
+        st = self.statics
+        prior01 = 0.5 * (g.prior_volume + 1.0)
+        center = st.cano_smpl_center
+        if not o.hierarchical_query:
+            if o.use_fused_query:
+                pf = grid_pose_features(feat_map, st, g.vol_res, g.valid_idx)
+                z = g.valid_pts[:, 2:3] - center[2]
+                occ = decode(self.packed_recon, torch.cat([pf, z], -1))
+            else:
+                occ = self.recon.decode_points(feat_map, g.valid_pts[None],
+                                               center[None])[0]
+            return _scatter_set(prior01, g.valid_idx, occ), None
+        return hierarchical_volume(
+            self.recon_value_fn(feat_map, decode), g, st.cano_bounds,
+            0.5 * (g.c_prior + 1.0), prior01, 0.5, o.hier_alpha,
+            o.recon_refine_capacity or o.refine_capacity)
 
     def recon_stage(self, front_normal: torch.Tensor,
                     back_normal: torch.Tensor, timer=None,
@@ -787,7 +822,7 @@ class AvatarCapture:
             mesh = _extract_mesh(vol, self.grid, self.statics.cano_bounds,
                                  0.5, o.recon_max_tris or o.max_tris,
                                  o.recon_max_active or o.max_active,
-                                 with_edge_ids=want_edge_ids
+                                 o.normal_mode, with_edge_ids=want_edge_ids
                                  and o.recon_unique_capacity > 0)
             if q_ovf is not None:
                 mesh = mesh._replace(overflow=mesh.overflow | q_ovf)

@@ -51,17 +51,11 @@ K45_POINTS = 1155072
 
 def event_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps launches after one warm-up, by
-    CUDA events on the current stream."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    CUDA events on the current stream (utils/timers.mean_ms on the
+    current card)."""
+    from avatarcap_tpu_torch.utils.timers import mean_ms
+    return mean_ms(fn, reps, torch.device("cuda",
+                                          torch.cuda.current_device()))[0]
 
 
 def launch_bound(n: int, macs_per_point: int, bytes_per_point: float,

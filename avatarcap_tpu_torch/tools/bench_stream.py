@@ -124,6 +124,20 @@ def stream_items(item: dict, n: int, seed: int = 7) -> List[dict]:
     return items
 
 
+def device_events(prof, kernels_only: bool = False):
+    """(name, start ns, duration ns) of every card activity in a finished
+    torch.profiler trace; with ``kernels_only``, without the copies and
+    fills (Memcpy, Memset)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        if kernels_only and e.name().startswith(("Memcpy", "Memset")):
+            continue
+        out.append((e.name(), e.start_ns(), e.duration_ns()))
+    return out
+
+
 def busy_share(run, device) -> dict:
     """Run ``run()`` under torch.profiler (card activity only) and return
     the union of the kernels' intervals over the span from the first
@@ -137,12 +151,8 @@ def busy_share(run, device) -> dict:
         run()
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    spans = []
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() == torch.autograd.DeviceType.CUDA
-                and not e.name().startswith(("Memcpy", "Memset"))):
-            start = e.start_ns()
-            spans.append((start, start + e.duration_ns()))
+    spans = [(start, start + dur)
+             for _, start, dur in device_events(prof, kernels_only=True)]
     if not spans:
         return {"busy_share": None, "kernels": 0, "profiled_s": seconds}
     spans.sort()

@@ -74,3 +74,26 @@ class StageTimer:
                  for k, v in sorted(self.times.items(), key=lambda kv: -kv[1])]
         lines.append(f"  {'TOTAL':<24s} {tot * 1e3:9.1f} ms")
         return "\n".join(lines)
+
+
+def mean_ms(fn, reps: int, device) -> tuple:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up
+    call, and the clock that measured them: CUDA events on the current
+    stream of a card ("cuda_events"), the host clock on the CPU ("host",
+    a CPU time, never a device one)."""
+    device = torch.device(device)
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, "cuda_events"
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps, "host"

@@ -9,9 +9,11 @@ Phases, each fatal on failure:
   2. build the full-size capture subject: the toy body (6,752 vertices),
      a 384 x 384 x 128 canonical grid, GeoTexAvatar, a texture avatar
      (its copy with a denser density head) and ReconNet at their published
-     widths with weights from fixed torch.Generators, the capture options
-     (texture path included) and the camera of the repo's capture
-     workload;
+     widths, the capture options (texture path included) and the camera of
+     the repo's capture workload; the networks start from fixed
+     torch.Generators and are fitted to the toy body with 6 mm wrinkles
+     ([fit]: each fit's seconds, final loss and whether the fit cache
+     under build/bench_fit/ was hit), as the JAX bench's subject is;
   3. build the weight image K1, K3, K4 and K5 stream (its bytes, chunks and
      build time are printed; the wrappers build it once per packed set);
      hold kernel K1 (warp_template_query) against its plain PyTorch
@@ -47,7 +49,16 @@ Phases, each fatal on failure:
      timed frames with the launch counts read around each (2 K1, 2 K2 and
      2 K3 launches), the stage times, and one avatar-only textured frame
      (2 K1, 1 K3);
-  7. [sync]: the synchronising calls that torch.cuda.set_sync_debug_mode
+  7. [capacity]: tools/capacity_stats on the fitted subject, each count
+     beside its capacity and the count the JAX package recorded for its
+     fitted bench body, and the three frame forms' overflow bits;
+     [normal_modes]: the production frame with normal_mode "mc_edge" and
+     "sobel_sample" (2 K1 + 2 K2 launches each, overflow, the mean dot
+     product of their avatar normals with the trilinear frame's, the
+     synchronising calls of frame_body in every form: none), and the small
+     production frame in both modes on the card against the CPU at
+     phase 10's tolerances;
+     [sync]: the synchronising calls that torch.cuda.set_sync_debug_mode
      reports inside AvatarCapture.frame_body, for the avatar-only, the
      production and the textured production frame at full size; there must
      be none;
@@ -63,12 +74,18 @@ Phases, each fatal on failure:
   9. [shard]: the production frame with AvatarCapture(shard_mesh=) over
      every visible card and over two slabs on the first card, and
      ShardedGridQuery on the small subject over the same two meshes, each
-     bit-equal to its unsharded counterpart;
+     bit-equal to its unsharded counterpart; [preflight]: the peak device
+     memory of the production frame, the textured one and a 4-frame
+     pipelined stream against the card's budget
+     (tools/compile_preflight); [trace]: the top 10 kernels of one
+     textured frame by device time with their launches, and each stage's
+     launches (tools/trace_frame);
  10. the avatar-only, the production and the textured production frame on
      a small subject on the card and on the CPU (f32 path and kernels),
      which must agree; the textured frame's colors through the kernels on
      the card also against the f32 path on the CPU;
- 11. the training phase (tools/bench_train.run);
+ 11. the training phase (tools/bench_train.run); [tools]: one short run
+     of tools/bench_mc and one of tools/bench_raster;
  12. the command line ([cli]): the port's generate_subject writes a
      subject (the toy body's 6,752 vertices as an SMPL pkl, the canonical
      and one posed pose, 2 views, 512^2 images, 256^2 position maps,
@@ -521,7 +538,7 @@ def stage_hashes(capture, item):
             vf, g, st.cano_bounds, g.c_prior, g.prior_volume, o.iso_value,
             o.hier_alpha, o.refine_capacity, with_stats=True)
         mesh = _extract_mesh(vol, g, st.cano_bounds, o.iso_value, o.max_tris,
-                             o.max_active)
+                             o.max_active, o.normal_mode)
         jnt = torch.as_tensor(item["cano2live_jnt_mats"],
                               dtype=torch.float32).to(dev)
         live, _ = capture.skinning_stage(mesh, jnt)
@@ -730,17 +747,44 @@ def _color_agreement(a, b, mesh_key, color_key, tol):
     return len(ia) / max(1, len(ub)), float(close.mean()) if len(ia) else 0.0
 
 
-def small_options():
-    """The small subject's options (48 x 48 x 32 grid, 128^2 renders):
-    the capture workload's, with capacities to match and one skinning row
-    per point."""
-    from avatarcap_tpu_torch.tools.bench_workloads import CAPTURE_OPTIONS
-    return dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
-                refine_capacity=1 << 16, recon_max_tris=0,
-                recon_max_active=0, recon_refine_capacity=0,
-                raster_max_candidates=0, render_res=128, skin_row_group=1,
-                fusion_iters=10, nerf_unique_capacity=1 << 14,
-                recon_unique_capacity=1 << 14, n_samples=4)
+def small_subject(device, **options):
+    """The small subject (48 x 48 x 32 grid, 128^2 renders; tools/
+    bench_workloads.SMALL_SUBJECT) with its random networks on ``device``:
+    a card and the CPU get the same weights, which two fits would not
+    give. ``options`` go over SMALL_CAPTURE_OPTIONS."""
+    from avatarcap_tpu_torch.tools.bench_workloads import (
+        SMALL_CAPTURE_OPTIONS, SMALL_SUBJECT)
+    return build_subject(device, options=dict(SMALL_CAPTURE_OPTIONS,
+                                              **options),
+                         fit=False, **SMALL_SUBJECT)
+
+
+def card_cpu_agreement(a, b, w_recon, key):
+    """A small frame on the card (a) against the CPU (b): triangle counts
+    within 1%, and 99% of the avatar's (and the merged) front normal
+    pixels within 1e-2. Raises on a disagreement; returns the record."""
+    pairs = [("num_tris", a["cano_mesh"], b["cano_mesh"])]
+    images = [("front_avatar_normal", a["front_avatar_normal"],
+               b["front_avatar_normal"])]
+    if w_recon:
+        pairs.append(("recon_num_tris", a["recon_mesh"], b["recon_mesh"]))
+        images.append(("front_merged_normal", a["front_merged_normal"],
+                       b["front_merged_normal"]))
+    rec = {}
+    ok = True
+    for name, ma, mb in pairs:
+        ta, tb = int(ma.num_tris), int(mb.num_tris)
+        rec[name] = {"card": ta, "cpu": tb}
+        ok &= ta > 0 and abs(ta - tb) <= 0.01 * tb
+    for name, ia, ib in images:
+        agree = float(((ia.cpu() - ib).abs().max(-1).values < 1e-2)
+                      .float().mean())
+        rec[f"{name}_pixels_agreeing"] = agree
+        ok &= agree >= 0.99
+    if not ok:
+        raise AssertionError(f"small frame ({key}) differs between the card "
+                             f"and the CPU: {rec}")
+    return rec
 
 
 def check_small_frame(device):
@@ -755,15 +799,13 @@ def check_small_frame(device):
     are also held against that frame's colors."""
     import torch
     from avatarcap_tpu_torch.pipeline.capture import CaptureMesh
-    small = small_options()
     from avatarcap_tpu_torch.pipeline.avatar import compute_pose_features
     cpu = torch.device("cpu")
     outs = {}
     for fused in (False, True):
         for dev in (device, cpu):
-            cap, item, recon_kw, _ = build_subject(
-                dev, vol_res=(48, 48, 32), dense=False, seed=1,
-                options=dict(small, use_fused_query=fused), img_res=128)
+            cap, item, recon_kw, _ = small_subject(dev,
+                                                   use_fused_query=fused)
             if fused and dev == device:
                 card_cap = cap
             outs[fused, dev.type] = (
@@ -775,33 +817,11 @@ def check_small_frame(device):
     report = {}
     for fused in (False, True):
         for w_recon in (False, True):
-            a, b = outs[fused, device.type][w_recon], outs[fused, "cpu"][w_recon]
             key = ("fused" if fused else "f32") + ("_w_recon" if w_recon
                                                    else "")
-            pairs = [("num_tris", a["cano_mesh"], b["cano_mesh"])]
-            images = [("front_avatar_normal", a["front_avatar_normal"],
-                       b["front_avatar_normal"])]
-            if w_recon:
-                pairs.append(("recon_num_tris", a["recon_mesh"],
-                              b["recon_mesh"]))
-                images.append(("front_merged_normal",
-                               a["front_merged_normal"],
-                               b["front_merged_normal"]))
-            rec = {}
-            ok = True
-            for name, ma, mb in pairs:
-                ta, tb = int(ma.num_tris), int(mb.num_tris)
-                rec[name] = {"card": ta, "cpu": tb}
-                ok &= ta > 0 and abs(ta - tb) <= 0.01 * tb
-            for name, ia, ib in images:
-                agree = float(((ia.cpu() - ib).abs().max(-1).values < 1e-2)
-                              .float().mean())
-                rec[f"{name}_pixels_agreeing"] = agree
-                ok &= agree >= 0.99
-            report[key] = rec
-            if not ok:
-                raise AssertionError(f"small frame ({key}) differs between "
-                                     f"the card and the CPU: {rec}")
+            report[key] = card_cpu_agreement(
+                outs[fused, device.type][w_recon], outs[fused, "cpu"][w_recon],
+                w_recon, key)
     for key, fused in (("f32_w_nerf", False), ("fused_w_nerf", True)):
         a, b = outs[fused, device.type][2], outs[fused, "cpu"][2]
         rec = {}
@@ -896,9 +916,7 @@ def shard_phase(capture, item, recon_kw, device):
     import torch
     from avatarcap_tpu_torch.tools import bench_stream
     rec = bench_stream.shard_phase(capture, item, recon_kw)
-    small, sitem, _, _ = build_subject(device, vol_res=(48, 48, 32),
-                                       dense=False, seed=1, img_res=128,
-                                       options=small_options())
+    small, sitem, _, _ = small_subject(device)
     rec["query"] = bench_stream.sharded_query_check(
         small.avatar, small.statics, small.grid,
         torch.as_tensor(sitem["smpl_pos_map"])[None], device)
@@ -910,6 +928,161 @@ def shard_phase(capture, item, recon_kw, device):
     if bad:
         raise AssertionError(f"sharded results differ from the unsharded "
                              f"ones: {bad}")
+    return rec
+
+
+def capacity_phase(capture, item, recon_kw, frames):
+    """[capacity]: tools/capacity_stats on the fitted subject, each count
+    beside its capacity and the JAX package's recorded count for its
+    fitted bench body (their ratio), and the overflow bit of each frame
+    form of phases 4-6 (``frames``: form -> frame record). Every count
+    must be under its capacity and within 15% of the JAX count, and no
+    form may overflow."""
+    from avatarcap_tpu_torch.tools.capacity_stats import (JAX_BENCH_COUNTS,
+                                                          capacity_stats)
+    stats = capacity_stats(capture, item,
+                           inferred_normal=recon_kw["inferred_normal"],
+                           camera=recon_kw["camera"],
+                           neck_vertex_idx=recon_kw["neck_vertex_idx"])
+    rows = {}
+    for name, row in stats.items():
+        if not isinstance(row, dict):
+            continue
+        jax_count = JAX_BENCH_COUNTS.get(name)
+        rows[name] = dict(row, jax_count=jax_count,
+                          under_capacity=row["count"] <= row["capacity"])
+        if jax_count:
+            rows[name]["ratio_to_jax"] = row["count"] / jax_count
+            rows[name]["within_15pct"] = abs(row["count"] / jax_count
+                                             - 1.0) <= 0.15
+        print(f"[capacity] {name}: {row['count']} of {row['capacity']} "
+              f"(headroom {row['headroom']}), JAX bench {jax_count}"
+              + (f", ratio {rows[name]['ratio_to_jax']:.3f}" if jax_count
+                 else ""))
+    overflow = {form: rec["overflow"] for form, rec in frames.items()}
+    overflow["capacity_stats_frame"] = stats["frame_overflow"]
+    print(f"[capacity] overflow by frame form: {json.dumps(overflow)}")
+    # the capacities were sized to the JAX bench's fitted body: the port's
+    # fitted subject must be that body
+    bad = [k for k, r in rows.items() if not r["under_capacity"]
+           or not r.get("within_15pct", True)]
+    if bad or any(overflow.values()):
+        raise AssertionError(f"the fitted subject's counts are off the JAX "
+                             f"bench's or over capacity: {bad}; overflow "
+                             f"{overflow}")
+    return {"rows": rows, "overflow": overflow}
+
+
+def normal_modes_phase(capture, item, recon_kw, device):
+    """[normal_modes]: the production frame with normal_mode "mc_edge" and
+    "sobel_sample" on the full-size subject (2 K1 + 2 K2 launches each),
+    their overflow bits, the mean dot product of their avatar normals
+    with the trilinear frame's over the soup, and frame_body's
+    synchronising calls in its three forms (none); then the small
+    production frame in both modes on the card against the CPU at phase
+    10's tolerances."""
+    import dataclasses
+    import torch
+    from avatarcap_tpu_torch.pipeline.capture import AvatarCapture
+    from avatarcap_tpu_torch.tools.bench_stream import sync_counts
+    ref, _ = run_frame(capture, item, device, w_recon=True, **recon_kw)
+    valid = ref["cano_mesh"].valid.repeat_interleave(3)
+    out = {}
+    for mode in ("mc_edge", "sobel_sample"):
+        cap = AvatarCapture(
+            capture.avatar, capture.statics, capture.grid,
+            recon=capture.recon, tex_avatar=capture.tex_avatar,
+            options=dataclasses.replace(capture.opt, normal_mode=mode),
+            device=device)
+        res, rec = run_frame(cap, item, device, w_recon=True, **recon_kw)
+        if (rec["k1_launches"], rec["k2_launches"]) != (2, 2):
+            raise AssertionError(f"the {mode} frame launched K1 "
+                                 f"{rec['k1_launches']} and K2 "
+                                 f"{rec['k2_launches']} times, expected 2, 2")
+        if rec["num_tris"] != int(ref["cano_mesh"].num_tris):
+            raise AssertionError(f"the {mode} frame has {rec['num_tris']} "
+                                 "triangles, the trilinear frame "
+                                 f"{int(ref['cano_mesh'].num_tris)}")
+        dots = (res["cano_mesh"].normals[valid]
+                * ref["cano_mesh"].normals[valid]).sum(-1)
+        rec["mean_dot_with_trilinear"] = float(dots.mean())
+        rec["sync"] = sync_counts(cap, item, recon_kw)
+        out[mode] = rec
+        print(f"[normal_modes] {mode}: {rec['seconds']:.3f} s, launches K1 "
+              f"{rec['k1_launches']} K2 {rec['k2_launches']}, triangles "
+              f"{rec['num_tris']} / {rec['recon_num_tris']}, overflow "
+              f"{rec['overflow']}, mean dot with the trilinear normals "
+              f"{rec['mean_dot_with_trilinear']:.5f}, synchronising calls "
+              + ", ".join(f"{k} {v['syncs']}" for k, v in rec["sync"].items()))
+        if any(v["syncs"] for v in rec["sync"].values()):
+            raise AssertionError(f"frame_body waits for the card with "
+                                 f"normal_mode={mode}: {rec['sync']}")
+        if rec["mean_dot_with_trilinear"] < 0.5:
+            raise AssertionError(f"the {mode} normals point away from the "
+                                 "trilinear ones")
+        del cap, res
+    out["small"] = {}
+    for mode in ("mc_edge", "sobel_sample"):
+        frames = {}
+        for dev in (device, torch.device("cpu")):
+            cap, sitem, skw, _ = small_subject(dev, normal_mode=mode)
+            frames[dev.type] = cap.process_frame(sitem, w_recon=True, **skw)
+        out["small"][mode] = card_cpu_agreement(
+            frames[device.type], frames["cpu"], True, f"{mode}_w_recon")
+    print(f"[normal_modes] small frames, card against CPU: "
+          f"{json.dumps(out['small'])}")
+    return out
+
+
+def preflight_phase(capture, item, recon_kw):
+    """[preflight]: tools/compile_preflight's peak memory of the
+    production frame, the textured one and a 4-frame pipelined stream
+    against the card's budget; each must fit."""
+    from avatarcap_tpu_torch.tools.compile_preflight import preflight
+    reports = preflight(capture, item, recon_kw, batch=4)
+    for r in reports:
+        print(f"[preflight] {r['program']}: peak {r['peak_gib']:.2f} GiB of "
+              f"a {r['budget_gib']:.2f} GiB budget ({r['total_gib']:.2f} "
+              f"GiB less {r['margin_gib']:.0f}): ok {r['ok']}")
+    if not all(r["ok"] for r in reports):
+        raise AssertionError(f"a program exceeds the budget: {reports}")
+    return reports
+
+
+def trace_phase(capture, item, recon_kw):
+    """[trace]: one textured production frame under torch.profiler
+    (tools/trace_frame): its top 10 kernels by device time with their
+    launches, the total launches, and each stage's launches."""
+    from avatarcap_tpu_torch.tools.trace_frame import trace
+    rec = trace(capture, item, recon_kw, frames=1, w_nerf=True, top=10)
+    print(f"[trace] textured frame: {rec['total_ms']:.2f} ms of device time "
+          f"in {rec['launches']:.0f} launches of {rec['distinct_ops']} "
+          f"distinct kernels; profiled frame {rec['profiled_s_per_frame']:.3f}"
+          f" s")
+    for o in rec["ops"]:
+        print(f"[trace] {o['ms']:9.3f} ms {o['launches']:6.0f} launches "
+              f"{o['share']:6.1%}  {o['name'][:110]}")
+    print("[trace] launches by stage: " + ", ".join(
+        f"{k} {v['launches']:.0f} ({v['ms']:.1f} ms)"
+        for k, v in rec["stages"].items())
+        + f"; outside the stages {rec['launches_outside_stages']:.0f}")
+    if rec["launches"] <= 0 or rec["clock"] != "cuda":
+        raise AssertionError("the profiler saw no kernel of the frame")
+    return rec
+
+
+def tools_phase(device):
+    """[tools]: one short run of tools/bench_mc (the capture grid's size)
+    and one of tools/bench_raster (a million triangles), CUDA-event
+    times."""
+    from avatarcap_tpu_torch.tools import bench_mc, bench_raster
+    rec = {"bench_mc": bench_mc.run(iters=3, device=device),
+           "bench_raster": bench_raster.run(iters=3, device=device)}
+    for tool, r in rec.items():
+        print(f"[tools] {tool}: " + ", ".join(
+            f"{k} {v['ms']:.3f} ms" for k, v in r["passes"].items())
+            + "; " + json.dumps({k: v for k, v in r.items()
+                                 if k != "passes"}))
     return rec
 
 
@@ -1187,10 +1360,12 @@ def main() -> int:
     mark("build")
 
     t0 = time.perf_counter()
-    capture, item, recon_kw, n_valid = build_subject(device)
+    capture, item, recon_kw, info = build_subject(device)
     record["subject"] = {"seconds": time.perf_counter() - t0,
-                         "grid_valid_points": n_valid,
+                         "grid_valid_points": info["n_valid"],
                          "vol_res": list(capture.grid.vol_res)}
+    record["fit"] = info["fit"]
+    print(f"[fit] {json.dumps(info['fit'])}")
     print(f"[subject] {record['subject']}")
     mark("subject")
 
@@ -1231,12 +1406,23 @@ def main() -> int:
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
     mark("k3_frame_w_nerf")
 
+    record["capacity"] = capacity_phase(
+        capture, item, recon_kw, {"avatar_only": frame,
+                                  "w_recon": frame_r, "w_recon_w_nerf": frame_n})
+    mark("capacity")
+    record["normal_modes"] = normal_modes_phase(capture, item, recon_kw,
+                                                device)
+    mark("normal_modes")
     record["sync"] = sync_phase(capture, item, recon_kw)
     mark("sync")
     record["stream"] = stream_phase(capture, item, recon_kw)
     mark("stream")
     record["shard"] = shard_phase(capture, item, recon_kw, device)
     mark("shard")
+    record["preflight"] = preflight_phase(capture, item, recon_kw)
+    mark("preflight")
+    record["trace"] = trace_phase(capture, item, recon_kw)
+    mark("trace")
     network_dirs = save_cli_networks(capture)
     del capture
     from avatarcap_tpu_torch.ops.fused_query import weight_image
@@ -1258,6 +1444,8 @@ def main() -> int:
     record["train"] = bench_train.run(device)
     print(f"[train] {json.dumps(record['train'])}")
     mark("train")
+    record["tools"] = tools_phase(device)
+    mark("tools")
 
     import shutil
     try:

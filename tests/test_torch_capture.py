@@ -216,8 +216,11 @@ def _compare_images(got, ref, atol, loose):
 
 @pytest.mark.parametrize("extra", [
     {},                                                  # the main path
-    dict(hierarchical_query=False, skinning_mode="knn")],
-    ids=["hierarchical-volume_skinning", "flat-knn_skinning"])
+    dict(hierarchical_query=False, skinning_mode="knn"),
+    dict(normal_mode="mc_edge"),
+    dict(normal_mode="sobel_sample")],
+    ids=["hierarchical-volume_skinning", "flat-knn_skinning",
+         "mc_edge_normals", "sobel_sample_normals"])
 def test_frame_f32_path_matches_jax(env, extra):
     from avatarcap_tpu.pipeline.capture import AvatarCapture, CaptureOptions
     jcap = AvatarCapture(env["module"], env["variables"], env["jstatics"],
@@ -316,17 +319,16 @@ def test_frame_fused_path_matches_jax_kernel(env):
 
 
 def test_unported_paths_raise(env):
-    """Only the other normal modes raise; a w_recon frame without its
-    inputs is refused with the reason."""
+    """A w_recon frame without its inputs is refused with the reason, and
+    so is a normal mode that neither package has."""
     cap = _port_capture(env, fused=False)
     with pytest.raises(ValueError, match="inferred_normal"):
         cap.process_frame(env["item"], w_recon=True)
-    from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
-                                                      CaptureOptions)
-    with pytest.raises(NotImplementedError):
+    from avatarcap_tpu_torch.pipeline.capture import AvatarCapture
+    with pytest.raises(ValueError, match="normal_mode"):
         AvatarCapture(cap.avatar, cap.statics, cap.grid,
                       options=dataclasses.replace(cap.opt,
-                                                  normal_mode="mc_edge"),
+                                                  normal_mode="sobel"),
                       device="cpu")
 
 

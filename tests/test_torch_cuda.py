@@ -479,23 +479,18 @@ def _small_capture(device, **extra):
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureOptions)
     from avatarcap_tpu_torch.tools.bench_workloads import (
-        CAPTURE_OPTIONS, bench_camera, build_capture_grid, random_avatar,
-        random_recon, random_tex_avatar, toy_avatar_statics)
+        SMALL_CAPTURE_OPTIONS, bench_camera, build_capture_grid,
+        random_avatar, random_recon, random_tex_avatar, toy_avatar_statics)
     params, statics, v = toy_avatar_statics(dense=False, device=device)
     grid, _ = build_capture_grid(statics, (48, 48, 32), pad_to=4096)
     gen = torch.Generator().manual_seed(1)
     avatar = random_avatar(gen)
-    opts = dict(CAPTURE_OPTIONS, max_tris=1 << 15, max_active=1 << 13,
-                refine_capacity=1 << 16, recon_max_tris=0,
-                recon_max_active=0, recon_refine_capacity=0,
-                raster_max_candidates=0, render_res=128, skin_row_group=1,
-                fusion_iters=10, nerf_unique_capacity=1 << 14,
-                recon_unique_capacity=1 << 14, n_samples=4)
     cap = AvatarCapture(avatar, statics, grid,
                         recon=random_recon(torch.Generator().manual_seed(2)),
                         tex_avatar=random_tex_avatar(
                             avatar, torch.Generator().manual_seed(3)),
-                        options=CaptureOptions(**opts), device=device,
+                        options=CaptureOptions(**SMALL_CAPTURE_OPTIONS),
+                        device=device,
                         **extra)
     w2c, camera, normal = bench_camera(128)
     rs = np.random.RandomState(0)
@@ -584,3 +579,86 @@ def test_two_slab_sharded_frame_equals_unsharded_on_card(card):
     sharded, _, _ = _small_capture(card, shard_mesh=[dev, dev])
     got = sharded.process_frame(items[0], w_recon=True, w_nerf=True, **kw)
     assert _same_bits(got, ref)
+
+
+def _small_subject(device, **options):
+    from avatarcap_tpu_torch.tools.bench_workloads import (
+        SMALL_CAPTURE_OPTIONS, SMALL_SUBJECT, build_capture_subject)
+    return build_capture_subject(
+        device, options=dict(SMALL_CAPTURE_OPTIONS, **options), fit=False,
+        **SMALL_SUBJECT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mc_edge", "sobel_sample"])
+def test_normal_modes_on_card_match_cpu(card, mode):
+    """The production frame with the Sobel normal modes on the small
+    subject, card against CPU at chip_smoke.py's [small] tolerances
+    (triangles within 1%, 99% of the avatar and merged normal pixels
+    within 1e-2), two K1 and two K2 launches, and frame_body free of host
+    syncs under set_sync_debug_mode("error")."""
+    from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
+                                                     warp_template_query)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        cap, item, kw, _ = _small_subject(dev, normal_mode=mode)
+        k1, k2 = warp_template_query.launches, recon_decode.launches
+        out[dev.type] = cap.process_frame(item, w_recon=True, **kw)
+        if dev.type == "cuda":
+            assert (warp_template_query.launches - k1,
+                    recon_decode.launches - k2) == (2, 2)
+            frame, jnt, normal, w2c = cap.upload(item, kw["inferred_normal"])
+            neck = cap._neck_xy(kw["neck_vertex_idx"])
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                cap.frame_body(frame, jnt, normal, w2c, kw["camera"], neck)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    a, b = out["cuda"], out["cpu"]
+    for key in ("cano_mesh", "recon_mesh"):
+        ta, tb = int(a[key].num_tris), int(b[key].num_tris)
+        assert ta > 0 and abs(ta - tb) <= 0.01 * tb, key
+    for key in ("front_avatar_normal", "front_merged_normal"):
+        close = (a[key].cpu() - b[key]).abs().max(-1).values < 1e-2
+        assert float(close.float().mean()) >= 0.99, key
+    assert torch.isfinite(a["cano_mesh"].normals).all()
+
+
+@pytest.mark.cuda
+def test_fit_step_on_card_matches_cpu(card):
+    """One template fit step and one decoder fit step on the card against
+    the CPU from the same weights and points: losses within 1e-4
+    relative; Adam's first step moves each weight by ~lr whatever its
+    gradient's size, so an entry whose gradient is float32 noise may move
+    the other way: every entry within 2 lr, 99% within 0.1 lr."""
+    from avatarcap_tpu_torch.ops.adam import Adam
+    from avatarcap_tpu_torch.tools import bench_workloads as bw
+    _, statics, _ = bw.toy_avatar_statics(dense=False)
+    grid, _ = bw.build_capture_grid(statics, (48, 48, 32), pad_to=4096)
+    inferred = bw.bench_camera(128)[2]
+    pts = bw.template_fit_points(statics, 4096,
+                                 torch.Generator().manual_seed(0))
+    idx = bw.recon_fit_indices(grid.valid_pts.shape[0], 4096,
+                               torch.Generator().manual_seed(1))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        st, g = statics.to(dev), grid.to(dev)
+        avatar = bw.random_avatar(torch.Generator().manual_seed(0)).to(dev)
+        recon = bw.random_recon(torch.Generator().manual_seed(1)).to(dev)
+        lt = bw.template_fit_step(
+            avatar, Adam(list(avatar.cano_template.parameters())), st,
+            pts.to(dev), wrinkle_amp=0.006)
+        feats = bw.recon_fit_features(recon, st, g, inferred)
+        i = idx.to(dev)
+        ld = bw.recon_fit_step(
+            recon, Adam(list(recon.image_decoder.parameters())), st,
+            feats[i], g.valid_pts[i], wrinkle_amp=0.006)
+        out[dev.type] = (float(lt), float(ld), [
+            p.detach().cpu() for p in list(avatar.cano_template.parameters())
+            + list(recon.image_decoder.parameters())])
+    (lt_a, ld_a, pa), (lt_b, ld_b, pb) = out["cuda"], out["cpu"]
+    assert abs(lt_a - lt_b) <= 1e-4 * lt_b and abs(ld_a - ld_b) <= 1e-4 * ld_b
+    d = torch.cat([(x - y).abs().reshape(-1) for x, y in zip(pa, pb)])
+    assert float(d.max()) <= 2e-3
+    assert float((d <= 1e-4).float().mean()) >= 0.99
