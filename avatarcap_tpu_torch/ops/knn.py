@@ -1,6 +1,6 @@
 """Brute-force K nearest neighbors (counterpart of avatarcap_tpu/ops/knn.py:
 ``knn``, ``knn_gather``, ``approx_lbs_weights`` and the near-body distance
-volume).
+volume), and ``knn_chunk``, the query chunk that bounds a distance tile.
 Distances are squared L2, computed as |q|^2 - 2 q.v + |v|^2 with one f32
 matmul per query chunk.
 """
@@ -11,6 +11,19 @@ import numpy as np
 import torch
 
 from avatarcap_tpu_torch.ops.volume_render import linspace01
+
+
+# Entries of the (rows, M) float32 distance tile that callers of knn size
+# their query chunks to with knn_chunk: 2^28 (1 GiB); knn holds a few such
+# temporaries at once.
+KNN_TILE = 1 << 28
+
+
+def knn_chunk(m: int, cap: int = 65536) -> int:
+    """Query rows per knn chunk against ``m`` database points: at most
+    ``cap``, and a (rows, m) tile of at most KNN_TILE entries. The chunk
+    changes no result."""
+    return max(1, min(cap, KNN_TILE // max(1, m)))
 
 
 def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,

@@ -250,7 +250,7 @@ def marching_tets(volume: torch.Tensor, iso: float,
                   bounds_min: torch.Tensor, voxel_size: torch.Tensor,
                   max_tris: int = 1 << 20, max_active: int = 1 << 18,
                   normal_volume: torch.Tensor = None,
-                  gradient_normals: bool = True,
+                  gradient_normals: bool = False,
                   with_edge_ids: bool = False) -> Mesh:
     """Extract the iso-surface of a dense (X, Y, Z) volume ("inside" is
     value > iso) with the 256-case tables. World vertex = index * voxel +
@@ -262,8 +262,8 @@ def marching_tets(volume: torch.Tensor, iso: float,
       vertex, the gradients gathered for the active cubes only.
     gradient_normals: without a normal volume, Mesh.normals are the
       outward unit gradients of each cube's own trilinear interpolant at
-      the emitted vertex (the port's default; the JAX function's is
-      False); False leaves Mesh.normals None.
+      the emitted vertex; False (the default, as in the JAX function)
+      leaves Mesh.normals None.
 
     with_edge_ids: also emit Mesh.edge_ids, the volume edge each soup
     vertex interpolates, (flat index of its lower node << 3) | axis code

@@ -297,7 +297,8 @@ def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
     kw = dict(max_tris=max_tris, max_active=max_active,
               with_edge_ids=with_edge_ids)
     if normal_mode == "trilinear":
-        mesh = marching_tets(vol, iso, bounds[0], voxel, **kw)
+        mesh = marching_tets(vol, iso, bounds[0], voxel,
+                             gradient_normals=True, **kw)
         normals = mesh.normals
     elif normal_mode == "mc_edge":
         mesh = marching_tets(vol, iso, bounds[0], voxel,
@@ -305,8 +306,7 @@ def _extract_mesh(volume_flat, grid: CaptureGrid, bounds, iso, max_tris,
                              **kw)
         normals = mesh.normals
     elif normal_mode == "sobel_sample":
-        mesh = marching_tets(vol, iso, bounds[0], voxel,
-                             gradient_normals=False, **kw)
+        mesh = marching_tets(vol, iso, bounds[0], voxel, **kw)
         normals = sample_volume_normals(
             vol, voxel, mesh_grid_coords(mesh.vertices, bounds))
     else:

@@ -52,7 +52,7 @@ def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
         res, dtype=torch.float32, device=device)])
     kw = dict(max_tris=max_tris, max_active=max_active)
     nvol = extract_normal_volume(vol, voxel)
-    plain = marching_tets(vol, 0.0, bmin, voxel, gradient_normals=False, **kw)
+    plain = marching_tets(vol, 0.0, bmin, voxel, **kw)
 
     def active_part():
         v5 = vol[None, None]
@@ -63,9 +63,9 @@ def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
 
     passes = {
         "marching_tets (no normals)": lambda: marching_tets(
-            vol, 0.0, bmin, voxel, gradient_normals=False, **kw),
-        "marching_tets (+trilinear normals)": lambda: marching_tets(
             vol, 0.0, bmin, voxel, **kw),
+        "marching_tets (+trilinear normals)": lambda: marching_tets(
+            vol, 0.0, bmin, voxel, gradient_normals=True, **kw),
         "extract_normal_volume (sobel)": lambda: extract_normal_volume(
             vol, voxel),
         "marching_tets (+sobel edge normals)": lambda: marching_tets(

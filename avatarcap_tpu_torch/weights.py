@@ -5,7 +5,9 @@ inverses of avatarcap_tpu/tools/convert_torch_ckpt.py:convert_geotex_avatar
 and :convert_recon_network. Their key names are the reference torch names
 those converters read, so the port's ``GeoTexAvatar`` and
 ``ReconNetwork`` also load released AvatarCap checkpoints (through
-``load_reference_state_dict``). Layouts:
+``load_reference_state_dict``); ``generator_state_dict_from_jax`` does the
+same for the pix2pixHD generators (the inverse of convert_global_generator,
+convert_local_enhancer and convert_encoder). Layouts:
 
 - flax Conv kernel (kh, kw, I, O)           -> torch Conv2d (O, I, kh, kw)
 - ConvTranspose kernel (kh, kw, I, O)       -> torch (I, O, kh, kw), a pure
@@ -145,6 +147,70 @@ def recon_state_dict_from_jax(variables: Mapping,
         sd[f"{name}.weight_v"] = _t(np.asarray(p["v"]).T[:, :, None])
         sd[f"{name}.bias"] = _t(p["bias"])
     _dense(sd, "image_decoder.fc_list.3", dec["fc3"])
+    return sd
+
+
+def _conv_t(sd, name, p):
+    # (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw)
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _resnet_block(sd, name, p):
+    _conv2d(sd, f"{name}.conv_block.1", p["conv1"])
+    _conv2d(sd, f"{name}.conv_block.5", p["conv2"])
+
+
+def _global_generator(sd, p, n_downsampling, n_blocks, prefix=""):
+    """A GlobalGenerator's ``model.*`` keys (the layout
+    convert_global_generator reads); the final conv when ``p`` has one."""
+    _conv2d(sd, f"{prefix}model.1", p["conv_in"])
+    idx = 4
+    for i in range(n_downsampling):
+        _conv2d(sd, f"{prefix}model.{idx}", p[f"down{i}"])
+        idx += 3
+    for i in range(n_blocks):
+        _resnet_block(sd, f"{prefix}model.{idx}", p[f"res{i}"])
+        idx += 1
+    for i in range(n_downsampling):
+        _conv_t(sd, f"{prefix}model.{idx}", p[f"up{i}"])
+        idx += 3
+    if "conv_out" in p:
+        _conv2d(sd, f"{prefix}model.{idx + 1}", p["conv_out"])
+
+
+def generator_state_dict_from_jax(variables: Mapping, kind: str = "global",
+                                  n_downsampling: int = 4,
+                                  n_blocks: int = 9,
+                                  n_local_enhancers: int = 1,
+                                  n_blocks_local: int = 3
+                                  ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of a pix2pixHD generator -> the port's
+    ``models/pix2pix`` state_dict: the inverse of convert_torch_ckpt.py's
+    convert_global_generator (``kind="global"``), convert_local_enhancer
+    (``"local"``: ``n_downsampling`` / ``n_blocks`` are the global trunk's,
+    n_downsample_global / n_blocks_global there) and convert_encoder
+    (``"encoder"``, no resnet blocks)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    if kind == "global":
+        _global_generator(sd, params, n_downsampling, n_blocks)
+    elif kind == "encoder":
+        _global_generator(sd, params, n_downsampling, 0)
+    elif kind == "local":
+        _global_generator(sd, params["global"], n_downsampling, n_blocks)
+        for n in range(1, n_local_enhancers + 1):
+            _conv2d(sd, f"model{n}_1.1", params[f"enh{n}_conv_in"])
+            _conv2d(sd, f"model{n}_1.4", params[f"enh{n}_down"])
+            for i in range(n_blocks_local):
+                _resnet_block(sd, f"model{n}_2.{i}", params[f"enh{n}_res{i}"])
+            _conv_t(sd, f"model{n}_2.{n_blocks_local}", params[f"enh{n}_up"])
+            if n == n_local_enhancers:
+                _conv2d(sd, f"model{n}_2.{n_blocks_local + 4}",
+                        params[f"enh{n}_conv_out"])
+    else:
+        raise ValueError(f"kind={kind!r}: one of 'global', 'local', "
+                         "'encoder'")
     return sd
 
 

@@ -102,7 +102,23 @@ Phases, each fatal on failure:
      directly on the same dataset item and weights; then the same with
      --stream 2 (one pipelined batch of both frames), whose JPEGs must
      equal the first run's byte for byte and whose PLYs must have its
-     triangle counts.
+     triangle counts;
+ 13. [preprocess] (tools/bench_preprocess.run_scan): a scan made from the
+     toy body (posed at the bench pose, subdivided twice to 109,442
+     vertices, displaced 6 mm by wrinkle_field, colored by position)
+     through preprocess_training_data at the JAX package's defaults (60
+     views at 512^2, 256^2 position maps, 2.2 M + 10k presampled points,
+     200 fit steps, Poisson at 256^3): seconds per stage, counts, the
+     template's mean distance to the scan before and after the fit, peak
+     memory; the fit must lower that distance, the Poisson mesh be finite
+     without overflow, a second Poisson solve bit-equal, the BVH's labels
+     and the card's signed_distance agree on 65,536 points (1e-5, signs
+     99.9%), and the port's training dataset read the subject;
+     [preprocess_real] (run_real): two 1024^2 real-layout frames through
+     preprocess_real_data with a GlobalGenerator(3, 3, 64, 4, 9) from a
+     fixed seed on 512^2 crops: seconds per frame; the normal maps finite
+     and zero outside the mask, the generator on the card and the CPU
+     within 1e-3.
 The kernel table's launches are those of phase 8's pipelined run.
 Prints each kernel's TFLOP/s and the share of its measured time that its
 bound explains, the kernel table as one JSON line, the card's name and
@@ -1454,6 +1470,17 @@ def main() -> int:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     print(f"[cli] {json.dumps(record['cli'])}")
     mark("cli")
+
+    from avatarcap_tpu_torch.tools import bench_preprocess
+    try:
+        record["preprocess"] = bench_preprocess.run_scan(device)
+        print(f"[preprocess] {json.dumps(record['preprocess'])}")
+        mark("preprocess")
+        record["preprocess_real"] = bench_preprocess.run_real(device)
+        print(f"[preprocess_real] {json.dumps(record['preprocess_real'])}")
+        mark("preprocess_real")
+    finally:
+        shutil.rmtree(bench_preprocess.WORK_DIR, ignore_errors=True)
     record["phase_seconds"] = phase_s
     print(f"[time] seconds by phase: {json.dumps(phase_s)}")
 

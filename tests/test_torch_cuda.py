@@ -662,3 +662,81 @@ def test_fit_step_on_card_matches_cpu(card):
     d = torch.cat([(x - y).abs().reshape(-1) for x, y in zip(pa, pb)])
     assert float(d.max()) <= 2e-3
     assert float((d <= 1e-4).float().mean()) >= 0.99
+
+
+def _sphere_cloud(n, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    p = rng.standard_normal((n, 3)).astype(np.float32)
+    p /= np.linalg.norm(p, axis=-1, keepdims=True)
+    p = p[p[:, 2] < 0.85]                       # a hole at the cap
+    pts = 0.5 * p + 0.005 * rng.standard_normal(p.shape).astype(np.float32)
+    return pts.astype(np.float32), p
+
+
+@pytest.mark.cuda
+def test_poisson_splat_repeats_bit_for_bit(card):
+    """The splat's scatter-add is deterministic on the card: the screened
+    solve at 128^3, run twice, gives the same soup's bits (an atomic
+    float32 accumulate would move iso-crossings from run to run); and it
+    agrees with the CPU in triangles within 1%."""
+    from avatarcap_tpu_torch.ops.poisson import _splat, poisson_reconstruct
+    pts, nrm = _sphere_cloud(200000, seed=0)
+    runs = [poisson_reconstruct(pts, nrm, res=128, pad=0.15, device=card)
+            for _ in range(2)]
+    assert runs[0][1] == runs[1][1] > 10000
+    assert runs[0][0].tobytes() == runs[1][0].tobytes()
+    _, nt_cpu = poisson_reconstruct(pts, nrm, res=128, pad=0.15,
+                                    device="cpu")
+    assert abs(runs[0][1] - nt_cpu) <= 0.01 * nt_cpu
+    f = torch.rand((1 << 20, 3), generator=torch.Generator().manual_seed(1))
+    f = (f * 62.999).to(card)          # corners up to node 63 of 64
+    i0 = f.floor().long()
+    vals = torch.randn((1 << 20, 3), device=card)
+    a = _splat(vals, i0, f - i0, 64)
+    b = _splat(vals, i0, f - i0, 64)
+    assert torch.equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.cuda
+def test_bvh_agrees_with_card_signed_distance(card):
+    """The host BVH and the card's signed_distance (KNN candidates +
+    exact projection, ray-parity sign) on points near a closed mesh: the
+    magnitudes within 1e-5, the signs on 99.9%."""
+    import numpy as np
+    from avatarcap_tpu_torch.native import MeshBVH
+    from avatarcap_tpu_torch.ops.closest_point import signed_distance
+    from avatarcap_tpu_torch.utils.toy_body import make_toy_smpl_params
+    body = make_toy_smpl_params(n_lat=77, n_lon=90)
+    verts, faces = body.v_template, body.faces
+    rng = np.random.RandomState(2)
+    tri = verts[faces[rng.randint(0, len(faces), 65536)]]
+    w = rng.dirichlet(np.ones(3), 65536)[..., None]
+    q = ((tri * w).sum(1) + 0.02 * rng.standard_normal((65536, 3))
+         ).astype(np.float32)
+    ref = MeshBVH(verts, faces).signed_distance(q)
+    sdf, _ = signed_distance(torch.as_tensor(q, device=card),
+                             torch.as_tensor(verts, device=card),
+                             torch.as_tensor(faces, device=card))
+    sdf = sdf.cpu().numpy()
+    assert np.abs(np.abs(sdf) - np.abs(ref)).max() <= 1e-5
+    assert (np.sign(sdf) == np.sign(ref)).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_generator_on_card_matches_cpu(card):
+    """A GlobalGenerator at the reference's define_G widths (64, 4 down,
+    9 blocks) on a 256^2 input, on the card and on the CPU, under
+    f32_convolutions: within 1e-3, and the card repeats its bits."""
+    from avatarcap_tpu_torch.tools.bench_preprocess import random_generator
+    gen = random_generator(seed=0)
+    x = torch.rand((1, 3, 256, 256),
+                   generator=torch.Generator().manual_seed(3)) * 2 - 1
+    with torch.no_grad():
+        ref = gen(x)
+        gen_card = gen.to(card)
+        got = gen_card(x.to(card))
+        again = gen_card(x.to(card))
+    assert torch.equal(got, again)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3

@@ -87,7 +87,7 @@ def test_marching_tets(caps):
                         jnp.asarray(voxel), max_tris=max_tris,
                         max_active=max_active, gradient_normals=True)
     got = tmt(_t(vol), 0.0, _t(bmin), _t(voxel), max_tris=max_tris,
-              max_active=max_active)
+              max_active=max_active, gradient_normals=True)
     assert int(got.num_tris) == int(ref.num_tris) > 100
     assert bool(got.overflow) == bool(ref.overflow)
     np.testing.assert_allclose(got.vertices.numpy(),

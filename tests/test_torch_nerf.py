@@ -353,7 +353,8 @@ def test_marching_tets_edge_ids_equal_jax():
                         max_active=1 << 12, gradient_normals=True,
                         with_edge_ids=True)
     got = tmt(_t(vol), 0.0, _t(bmin), _t(voxel), max_tris=1 << 13,
-              max_active=1 << 12, with_edge_ids=True)
+              max_active=1 << 12, gradient_normals=True,
+              with_edge_ids=True)
     n = int(ref.num_tris)
     assert int(got.num_tris) == n > 100
     same = np.all(np.abs(got.vertices.numpy() - np.asarray(ref.vertices))
