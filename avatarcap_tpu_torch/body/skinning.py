@@ -1,6 +1,7 @@
 """Forward linear blend skinning (counterpart of
-avatarcap_tpu/body/skinning.py: ``blend_joint_mats``, ``skin_points``, the
-flat ``mats16`` helpers and the volume-accelerated KNN-Gaussian LBS).
+avatarcap_tpu/body/skinning.py: ``blend_joint_mats``, ``skin_points``,
+``skin_normals``, the flat ``mats16`` helpers and the volume-accelerated
+KNN-Gaussian LBS).
 
 Per-point matrices stay flat, (N, 16) row-major with channel 4 r + c =
 mat[r, c], as in the JAX package.
@@ -36,6 +37,15 @@ def skin_points(points: torch.Tensor, lbs: torch.Tensor,
     """Forward-skin (N, 3) points with (N, J) blend weights and (J, 4, 4)
     joint transforms: the blended flat mats applied to each point."""
     return mats16_apply_points(blend_joint_mats16(lbs, jnt_mats), points)
+
+
+def skin_normals(normals: torch.Tensor, lbs: torch.Tensor,
+                 jnt_mats: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., N, 3) normals by the blended (..., N, J) x (..., J, 4,
+    4) matrices' linear part, without renormalising."""
+    pt_mats = blend_joint_mats(lbs, jnt_mats)
+    return torch.einsum("...nxy,...ny->...nx", pt_mats[..., :3, :3],
+                        normals)
 
 
 def mats16_apply_points(m16: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -63,17 +63,17 @@ def _load_subject(cfg, data_dir: str, training: bool, device=None):
 
 def _new_avatar(cfg, seed: int):
     """GeoTexAvatar with its initialisation drawn from torch's generator
-    seeded ``seed`` (forked, so the caller's stream is left as it was)."""
-    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar, TEMPLATE_FREQS
-    pe = (cfg.model.cano_template_pos_encoding,
-          cfg.model.warping_field_pos_encoding)
-    if pe != (TEMPLATE_FREQS, 0):
-        raise NotImplementedError(
-            f"positional encodings {pe}: the port's GeoTexAvatar has "
-            f"({TEMPLATE_FREQS}, 0), the reference's capture configuration")
+    seeded ``seed`` (forked, so the caller's stream is left as it was), in
+    the config's ``if_type`` and positional encodings. The kernels take
+    the (10, 0) encodings only: a test run of other encodings needs
+    ``testing.capture_options: {use_fused_query: false}``."""
+    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return GeoTexAvatar(if_type=cfg.if_type)
+        return GeoTexAvatar(
+            if_type=cfg.if_type,
+            pos_encoding_template=cfg.model.cano_template_pos_encoding,
+            pos_encoding_warp=cfg.model.warping_field_pos_encoding)
 
 
 def train_avatar(cfg, device=None):

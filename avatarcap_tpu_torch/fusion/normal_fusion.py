@@ -1,6 +1,7 @@
 """Canonical normal fusion (counterpart of
 avatarcap_tpu/fusion/normal_fusion.py: ``lift_image_normals``,
-``merge_normal_images`` and ``merge_normal_images_cover``).
+``canonicalize_normal_map``, ``merge_normal_images`` and
+``merge_normal_images_cover``).
 
 - The lift rasterizes the live mesh's positions from the capture camera
   (a perspective index pass), keeps the vertices whose projected
@@ -27,6 +28,7 @@ from avatarcap_tpu_torch.ops.adam import Adam
 from avatarcap_tpu_torch.ops.morphology import distance_transform_l1, erode_3x3
 from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
 from avatarcap_tpu_torch.render.raster import rasterize
+from avatarcap_tpu_torch.render.visualize import render_cano_mesh
 
 
 def lift_image_normals(live_tris: torch.Tensor, valid_tris: torch.Tensor,
@@ -83,6 +85,38 @@ def lift_image_normals(live_tris: torch.Tensor, valid_tris: torch.Tensor,
     proj_n = mats16_inv_rotate(vert_mats16, proj_n)
     proj_n = torch.where(valid[:, None], proj_n, torch.zeros_like(proj_n))
     return proj_n.reshape(T, 3, 3), pos_pass.overflow
+
+
+def canonicalize_normal_map(cano_tris: torch.Tensor, live_tris: torch.Tensor,
+                            valid_tris: torch.Tensor,
+                            normal_map: torch.Tensor,
+                            vert_mats: torch.Tensor,
+                            mv: torch.Tensor, proj: torch.Tensor,
+                            front_mvp: torch.Tensor, front_mv: torch.Tensor,
+                            back_mvp: torch.Tensor, back_mv: torch.Tensor,
+                            fx: float, fy: float, cx: float, cy: float,
+                            img_h: int, img_w: int, res: int = 512,
+                            window: int = 4
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Image normals lifted onto the canonical mesh and rendered front and
+    back: lift_image_normals, then render/visualize.render_cano_mesh (the
+    standalone form; the capture interpolates at its shared canonical
+    index passes instead).
+
+    Args:
+      cano_tris, live_tris: (T, 3, 3) corresponding soups; valid_tris (T,).
+      normal_map: (img_h, img_w, 3) image normals (camera convention).
+      vert_mats: (T, 3, 4, 4) per-soup-vertex cano -> live mats.
+      mv, proj: the capture camera's (4, 4); front_* / back_*: the
+        canonical orthographic matrices (camera.cano_front_back_mvp).
+    Returns (front (res, res, 3), back (res, res, 3)).
+    """
+    attr_tris, _ = lift_image_normals(
+        live_tris, valid_tris, normal_map, vert_mats.reshape(-1, 16), mv,
+        proj, fx, fy, cx, cy, img_h, img_w, window=window)
+    return render_cano_mesh(cano_tris, attr_tris, valid_tris, front_mvp,
+                            front_mv, back_mvp, back_mv, res=res,
+                            window=window)
 
 
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:

@@ -7,14 +7,15 @@ reference checkpoint loads with ``load_state_dict`` (see weights.py).
 Capture runs it in ``eval()`` (the warp field's BatchNorms use their
 running statistics); training runs it in ``train()``.
 
-The configuration is the reference's capture one, fixed: template PE(10)
-in SDF mode, no PE on the warp field's point input (kernel K1 bakes in the
-same widths). The occupancy form (``if_type="occupancy"``, a sigmoid on
-the geometry head) is not ported: GeoTexAvatar raises for it. The JAX
-GeoHead is the torch reference's ``geo_mlp = MLP(256, 2, (128,), leaky)``
-and OutOffsetHead its
-``out_layer_coord_affine`` Conv1d; both keep the reference's U(+-1e-5)
-output init.
+The defaults are the reference's capture configuration: template PE(10)
+in SDF mode, no PE on the warp field's point input (kernel K1 bakes in
+these widths; other encodings run on the f32 module path only). Other
+encodings widen the template's input to ``embed_dim(pos_encoding)`` and
+the OffsetDecoder's to ``embed_dim(pos_encoding) + 64``;
+``if_type="occupancy"`` puts a sigmoid on the geometry head's first
+channel. The JAX GeoHead is the torch reference's ``geo_mlp = MLP(256, 2,
+(128,), leaky)`` and OutOffsetHead its ``out_layer_coord_affine`` Conv1d;
+both keep the reference's U(+-1e-5) output init.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from avatarcap_tpu_torch.ops.grid_sample import (grid_sample_3d,
                                                  sample_feature_map_at_points)
 
 TEMPLATE_FREQS = 10
+WARP_FREQS = 0
 POSE_FEAT_DIM = 64
+IF_TYPES = ("sdf", "occupancy")
 
 
 def tiny_uniform_(t: torch.Tensor) -> torch.Tensor:
@@ -40,12 +43,17 @@ def tiny_uniform_(t: torch.Tensor) -> torch.Tensor:
 
 
 class DoubleTNet(nn.Module):
-    """PE(10) -> shared MLP 63 -> [256 x 6, res@4] -> 256; geo head ->
-    (sdf, density); color head -> rgb."""
+    """PE(pos_encoding) -> shared MLP [256 x 6, res@4] -> 256; geo head ->
+    (sdf or occupancy, density); color head -> rgb."""
 
-    def __init__(self):
+    def __init__(self, pos_encoding: int = TEMPLATE_FREQS,
+                 if_type: str = "sdf"):
         super().__init__()
-        self.shared_mlp = MLP(embed_dim(TEMPLATE_FREQS), 256, (256,) * 6,
+        if if_type not in IF_TYPES:
+            raise ValueError(f"if_type={if_type!r}: one of {IF_TYPES}")
+        self.pos_encoding = pos_encoding
+        self.if_type = if_type
+        self.shared_mlp = MLP(embed_dim(pos_encoding), 256, (256,) * 6,
                               res_layers=(4,))
         self.geo_mlp = MLP(256, 2, (128,), nlactv="leaky_relu")
         self.clr_mlp = MLP(256, 3, (256, 128))
@@ -54,21 +62,26 @@ class DoubleTNet(nn.Module):
 
     def forward(self, pts: torch.Tensor):
         """pts (..., N, 3) -> rgb (..., N, 3), alpha (..., N, 1),
-        occ (..., N, 1)."""
-        feat = self.shared_mlp(positional_encoding(pts, TEMPLATE_FREQS))
+        occ (..., N, 1): the SDF, or the occupancy sigmoid(geo)."""
+        feat = self.shared_mlp(positional_encoding(pts, self.pos_encoding))
         geo = self.geo_mlp(feat)
         rgb = torch.sigmoid(self.clr_mlp(feat))
-        return rgb, torch.relu(geo[..., 1:2]), geo[..., :1]
+        occ = geo[..., :1]
+        if self.if_type == "occupancy":
+            occ = torch.sigmoid(occ)
+        return rgb, torch.relu(geo[..., 1:2]), occ
 
 
 class WarpingField(nn.Module):
     """Pose-dependent non-rigid warp: U-Net pose features once per pose,
-    then per point a bilinear feature fetch + OffsetDecoder + 3-d head."""
+    then per point a bilinear feature fetch + OffsetDecoder on
+    [PE(pos_encoding) of the point, features] + 3-d head."""
 
-    def __init__(self):
+    def __init__(self, pos_encoding: int = WARP_FREQS):
         super().__init__()
+        self.pos_encoding = pos_encoding
         self.unet = UnetNoCond7DS(6, POSE_FEAT_DIM, nf=32)
-        self.mlp = OffsetDecoder(3 + POSE_FEAT_DIM)
+        self.mlp = OffsetDecoder(embed_dim(pos_encoding) + POSE_FEAT_DIM)
         self.out_layer_coord_affine = PointConv1d(256, 3)
         tiny_uniform_(self.out_layer_coord_affine.weight)
         nn.init.zeros_(self.out_layer_coord_affine.bias)
@@ -86,7 +99,8 @@ class WarpingField(nn.Module):
         pts_c = (pts - cano_smpl_center[:, None, :]).detach()
         pose_feat = sample_feature_map_at_points(
             pose_feat_map.permute(0, 3, 1, 2), pts_c)
-        h = self.mlp(torch.cat([pts, pose_feat], dim=-1))
+        h = self.mlp(torch.cat([positional_encoding(pts, self.pos_encoding),
+                                pose_feat], dim=-1))
         return self.out_layer_coord_affine(h)
 
 
@@ -107,14 +121,19 @@ def sample_weight_volume(weight_volume: torch.Tensor,
 class GeoTexAvatar(nn.Module):
     """Template + warp field (the reference's ``network`` module)."""
 
-    def __init__(self, if_type: str = "sdf"):
-        if if_type != "sdf":
-            raise NotImplementedError(
-                f"if_type={if_type!r}: the port's GeoTexAvatar has the SDF "
-                "geometry head only")
+    def __init__(self, if_type: str = "sdf",
+                 pos_encoding_template: int = TEMPLATE_FREQS,
+                 pos_encoding_warp: int = WARP_FREQS):
         super().__init__()
-        self.cano_template = DoubleTNet()
-        self.warping_field = WarpingField()
+        self.if_type = if_type
+        self.cano_template = DoubleTNet(pos_encoding_template, if_type)
+        self.warping_field = WarpingField(pos_encoding_warp)
+
+    @property
+    def encodings(self):
+        """(template, warp) positional-encoding frequencies."""
+        return (self.cano_template.pos_encoding,
+                self.warping_field.pos_encoding)
 
     def pose_features(self, smpl_pos_map):
         return self.warping_field.pose_features(smpl_pos_map)

@@ -1,11 +1,16 @@
 """Stacked-hourglass image encoder (counterpart of
-avatarcap_tpu/models/hourglass.py), in ReconNet's configuration:
-GroupNorm(32), ``down_type="no_down"``, no sigmoid.
+avatarcap_tpu/models/hourglass.py): GroupNorm(32), ``down_type``
+"no_down" (ReconNet's) or "ave_pool", one stack or more, an optional tanh
+output (``use_sigmoid``).
 
 Module names are the reference torch names (``conv1``/``bn1`` ..., the
 ConvBlock residual ``downsample.0`` GroupNorm and ``downsample.2`` conv,
-the hourglass ``b1_/b2_/b3_{level}`` and ``b2_plus_1``), the names
-avatarcap_tpu/tools/convert_torch_ckpt.py:convert_hgfilter reads.
+the hourglass ``b1_/b2_/b3_{level}`` and ``b2_plus_1``, and per stack
+``m{i}``, ``top_m_{i}``, ``conv_last{i}``, ``bn_end{i}``, ``l{i}`` and
+between stacks ``bl{i}`` / ``al{i}``), the names
+avatarcap_tpu/tools/convert_torch_ckpt.py:convert_hgfilter reads (it has
+no ``bl`` / ``al`` keys; weights.hgfilter_state_dict_from_jax writes
+them).
 Layout is NCHW inside; ReconNetwork converts at its NHWC boundary.
 """
 
@@ -78,33 +83,55 @@ class HourGlass(nn.Module):
 
 
 class HGFilter(nn.Module):
-    """Hourglass image filter with one stack (ReconNet's): (B, C_in, H, W)
-    -> ([(B, last_ch, H/2, W/2) feature map], normx). Only
-    ``down_type="no_down"`` (ReconNet's) is ported; other values raise."""
+    """Hourglass image filter: (B, C_in, H, W) -> ([n_stack feature maps
+    (B, last_ch, H/2, W/2), or H/4 with ``down_type="ave_pool"``], normx).
+    ReconNet's is one stack, ``no_down``, no sigmoid. ``ave_pool`` pools
+    2x after ``conv2``; each stack but the last feeds the next through the
+    1x1 convs ``bl{i}`` (of its features) and ``al{i}`` (of its output),
+    summed with its input; ``use_sigmoid`` puts a tanh on every output
+    (the reference's name for it)."""
 
     def __init__(self, depth: int = 4, in_ch: int = 6, last_ch: int = 32,
-                 down_type: str = "no_down"):
+                 down_type: str = "no_down", n_stack: int = 1,
+                 use_sigmoid: bool = False):
         super().__init__()
-        if down_type != "no_down":
-            raise NotImplementedError(
-                f"down_type={down_type!r} is not ported; ReconNet uses "
-                "'no_down'")
+        if down_type not in ("no_down", "ave_pool"):
+            raise ValueError(f"down_type={down_type!r}: 'no_down' or "
+                             "'ave_pool'")
+        self.down_type = down_type
+        self.n_stack = n_stack
+        self.use_sigmoid = use_sigmoid
         self.conv1 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3)
         self.bn1 = group_norm(64)
         self.conv2 = ConvBlock(64, 128)
         self.conv3 = ConvBlock(128, 128)
         self.conv4 = ConvBlock(128, 256)
-        self.m0 = HourGlass(depth, 256)
-        self.top_m_0 = ConvBlock(256, 256)
-        self.conv_last0 = nn.Conv2d(256, 256, 1)
-        self.bn_end0 = group_norm(256)
-        self.l0 = nn.Conv2d(256, last_ch, 1)
+        for i in range(n_stack):
+            self.add_module(f"m{i}", HourGlass(depth, 256))
+            self.add_module(f"top_m_{i}", ConvBlock(256, 256))
+            self.add_module(f"conv_last{i}", nn.Conv2d(256, 256, 1))
+            self.add_module(f"bn_end{i}", group_norm(256))
+            self.add_module(f"l{i}", nn.Conv2d(256, last_ch, 1))
+            if i < n_stack - 1:
+                self.add_module(f"bl{i}", nn.Conv2d(256, 256, 1))
+                self.add_module(f"al{i}", nn.Conv2d(last_ch, 256, 1))
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
-        normx = self.conv2(x)
-        x = self.conv4(self.conv3(normx))
-        ll = self.top_m_0(self.m0(x))
-        ll = F.relu(self.bn_end0(self.conv_last0(ll)))
-        return [self.l0(ll)], normx
+        x = self.conv2(x)
+        if self.down_type == "ave_pool":
+            x = F.avg_pool2d(x, 2, stride=2)
+        normx = x
+        previous = self.conv4(self.conv3(normx))
+        outputs = []
+        for i in range(self.n_stack):
+            ll = getattr(self, f"top_m_{i}")(getattr(self, f"m{i}")(previous))
+            ll = F.relu(getattr(self, f"bn_end{i}")(
+                getattr(self, f"conv_last{i}")(ll)))
+            out = getattr(self, f"l{i}")(ll)
+            outputs.append(torch.tanh(out) if self.use_sigmoid else out)
+            if i < self.n_stack - 1:
+                previous = (previous + getattr(self, f"bl{i}")(ll)
+                            + getattr(self, f"al{i}")(out))
+        return outputs, normx

@@ -1,5 +1,7 @@
-"""POP-style U-Net of the warp field (counterpart of
-avatarcap_tpu/models/unets.py, UnetNoCond7DS only).
+"""POP-style U-Nets (counterpart of avatarcap_tpu/models/unets.py): the
+warp field's UnetNoCond7DS and the 5- and 6-downsample variants
+UnetNoCond5DS and UnetNoCond6DS (exported; nothing in either package
+calls them).
 
 Kept reference quirk: ``upconv3`` is applied twice with shared parameters
 and ``upconv4`` is never applied (the released checkpoints were trained
@@ -81,6 +83,74 @@ class UpConv2DBlock(nn.Module):
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
         return x
+
+
+class UnetNoCond5DS(nn.Module):
+    """5 downsamples; ``up_mode`` ("upconv" or "upsample") for all five
+    up blocks."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3, nf: int = 64,
+                 up_mode: str = "upconv"):
+        super().__init__()
+        self.conv1 = Conv2DBlock(input_nc, nf, use_bn=False, use_relu=False)
+        self.conv2 = Conv2DBlock(nf, 2 * nf)
+        self.conv3 = Conv2DBlock(2 * nf, 4 * nf)
+        self.conv4 = Conv2DBlock(4 * nf, 8 * nf)
+        self.conv5 = Conv2DBlock(8 * nf, 8 * nf, use_bn=False)
+        self.upconv1 = UpConv2DBlock(8 * nf, 8 * nf, up_mode=up_mode)
+        self.upconv2 = UpConv2DBlock(16 * nf, 4 * nf, up_mode=up_mode)
+        self.upconv3 = UpConv2DBlock(8 * nf, 2 * nf, up_mode=up_mode)
+        self.upconv4 = UpConv2DBlock(4 * nf, nf, up_mode=up_mode)
+        self.upconv5 = UpConv2DBlock(2 * nf, output_nc, use_bn=False,
+                                     use_bias=True, up_mode=up_mode)
+
+    def forward(self, x):
+        d1 = self.conv1(x)
+        d2 = self.conv2(d1)
+        d3 = self.conv3(d2)
+        d4 = self.conv4(d3)
+        d5 = self.conv5(d4)
+        u1 = self.upconv1(d5, d4)
+        u2 = self.upconv2(u1, d3)
+        u3 = self.upconv3(u2, d2)
+        u4 = self.upconv4(u3, d1)
+        return self.upconv5(u4)
+
+
+class UnetNoCond6DS(nn.Module):
+    """6 downsamples; ``up_mode`` for upconv1-4, upconvC5 and upconvC6
+    always "upsample"."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3, nf: int = 64,
+                 up_mode: str = "upconv"):
+        super().__init__()
+        self.conv1 = Conv2DBlock(input_nc, nf, use_bn=False, use_relu=False)
+        self.conv2 = Conv2DBlock(nf, 2 * nf)
+        self.conv3 = Conv2DBlock(2 * nf, 4 * nf)
+        self.conv4 = Conv2DBlock(4 * nf, 8 * nf)
+        self.conv5 = Conv2DBlock(8 * nf, 8 * nf)
+        self.conv6 = Conv2DBlock(8 * nf, 8 * nf, use_bn=False)
+        self.upconv1 = UpConv2DBlock(8 * nf, 8 * nf, up_mode=up_mode)
+        self.upconv2 = UpConv2DBlock(16 * nf, 8 * nf, up_mode=up_mode)
+        self.upconv3 = UpConv2DBlock(16 * nf, 8 * nf, up_mode=up_mode)
+        self.upconv4 = UpConv2DBlock(12 * nf, 4 * nf, up_mode=up_mode)
+        self.upconvC5 = UpConv2DBlock(6 * nf, 2 * nf, up_mode="upsample")
+        self.upconvC6 = UpConv2DBlock(3 * nf, output_nc, use_bn=False,
+                                      use_bias=True, up_mode="upsample")
+
+    def forward(self, x):
+        d1 = self.conv1(x)
+        d2 = self.conv2(d1)
+        d3 = self.conv3(d2)
+        d4 = self.conv4(d3)
+        d5 = self.conv5(d4)
+        d6 = self.conv6(d5)
+        u1 = self.upconv1(d6, d5)
+        u2 = self.upconv2(u1, d4)
+        u3 = self.upconv3(u2, d3)
+        u4 = self.upconv4(u3, d2)
+        uc5 = self.upconvC5(u4, d1)
+        return self.upconvC6(uc5)
 
 
 class UnetNoCond7DS(nn.Module):

@@ -1,7 +1,7 @@
 """Iso-surface extraction (counterpart of avatarcap_tpu/ops/marching_cubes.py:
-``marching_tets`` with ``method="mc256"``, its normals from the cube's
-trilinear gradient (``gradient_normals``) or from a Sobel gradient volume
-(``normal_volume``), and ``mesh_grid_coords``).
+``marching_tets`` with ``method="mc256"`` or ``"tets"``, its normals from
+the cube's trilinear gradient (``gradient_normals``) or from a Sobel
+gradient volume (``normal_volume``), and ``mesh_grid_coords``).
 
 The case tables are derived from the 6-tetrahedra cube split at import
 time, exactly as the JAX module derives them (no hand-typed LUT): the tet
@@ -10,7 +10,11 @@ by boundary-loop simplification. The output contract is the JAX one: a
 triangle soup at static capacity ``max_tris`` (triangle j = vertices
 3j..3j+2), active cubes in ascending flat order, each emitting its case's
 triangles in table order, plus an ``overflow`` flag when either the
-triangle or the active-cube capacity is exceeded. The 8 corner values
+triangle or the active-cube capacity is exceeded. ``method="tets"``
+triangulates each cube's 6 tetrahedra instead (about 3x the triangles of
+the same surface, kept for cross-validation), with the same capacities
+and slot order: cubes ascending, tets in order, each tet's triangles in
+table order. The 8 corner values
 (and a normal volume's 8 corner gradients) steer the within-edge
 interpolation as bf16 (as the JAX kernel carries them), while
 inside/outside decisions use the f32 values.
@@ -251,10 +255,12 @@ def marching_tets(volume: torch.Tensor, iso: float,
                   max_tris: int = 1 << 20, max_active: int = 1 << 18,
                   normal_volume: torch.Tensor = None,
                   gradient_normals: bool = False,
-                  with_edge_ids: bool = False) -> Mesh:
+                  with_edge_ids: bool = False,
+                  method: str = "mc256") -> Mesh:
     """Extract the iso-surface of a dense (X, Y, Z) volume ("inside" is
-    value > iso) with the 256-case tables. World vertex = index * voxel +
-    bounds_min + 0.5 voxel.
+    value > iso) with the 256-case tables (``method="mc256"``) or the
+    6-tet split (``"tets"``). World vertex = index * voxel + bounds_min +
+    0.5 voxel.
 
     normal_volume: optional (X, Y, Z, 3) gradient volume
       (ops/sobel.extract_normal_volume); Mesh.normals are then the outward
@@ -270,6 +276,8 @@ def marching_tets(volume: torch.Tensor, iso: float,
     (4 x + 2 y + z of the edge's direction); -1 on slots past num_tris.
     Every slot on the same edge carries the same key.
     """
+    if method not in ("mc256", "tets"):
+        raise ValueError(f"method={method!r}: 'mc256' or 'tets'")
     dev = volume.device
     X, Y, Z = volume.shape
     nx, ny, nz = X - 1, Y - 1, Z - 1
@@ -287,11 +295,23 @@ def marching_tets(volume: torch.Tensor, iso: float,
     corners = device_constant(_CUBE_CORNERS, dev, torch.long)
     av = volume[aix[:, None] + corners[:, 0], aiy[:, None] + corners[:, 1],
                 aiz[:, None] + corners[:, 2]]                     # (A, 8)
-    bits = device_constant([1 << i for i in range(8)], dev, torch.long)
-    case8 = ((av > iso).long() * bits).sum(-1)                    # (A,)
-    cube_counts = device_constant(_NTRIS256, dev, torch.long)[case8]
-    cube_counts = torch.where(active_valid, cube_counts,
-                              torch.zeros_like(cube_counts))
+    inside = (av > iso).long()
+    if method == "mc256":
+        bits = device_constant([1 << i for i in range(8)], dev, torch.long)
+        case8 = (inside * bits).sum(-1)                           # (A,)
+        cube_counts = device_constant(_NTRIS256, dev, torch.long)[case8]
+        cube_counts = torch.where(active_valid, cube_counts,
+                                  torch.zeros_like(cube_counts))
+    else:
+        # per-tet case: bit i = the tet's corner i inside
+        tets = device_constant(_TETS, dev, torch.long)            # (6, 4)
+        bits4 = device_constant([1, 2, 4, 8], dev, torch.long)
+        cases = (inside[:, tets] * bits4).sum(-1)                 # (A, 6)
+        tcounts = device_constant(_NTRIS_TABLE, dev, torch.long)[
+            torch.arange(6, device=dev), cases]                   # (A, 6)
+        tcounts = torch.where(active_valid[:, None], tcounts,
+                              torch.zeros_like(tcounts))
+        cube_counts = tcounts.sum(-1)
 
     cube_cum = torch.cumsum(cube_counts, 0)
     total = cube_cum[-1]
@@ -303,8 +323,23 @@ def marching_tets(volume: torch.Tensor, iso: float,
     cube_of = torch.searchsorted(cube_cum, tri_j, right=True).clamp_max(
         max_active - 1)
     r = tri_j - (cube_cum[cube_of] - cube_counts[cube_of])
-    r = r.clamp(0, MC256_MAX_TRIS - 1)
-    edges = device_constant(_EDGES256, dev, torch.long)[case8[cube_of], r]
+    if method == "mc256":
+        r = r.clamp(0, MC256_MAX_TRIS - 1)
+        edges = device_constant(_EDGES256, dev, torch.long)[case8[cube_of],
+                                                             r]
+    else:
+        # the slot's tet: the tets whose cumulative count it has passed;
+        # k = its triangle within that tet
+        pref = torch.cumsum(tcounts, -1)[cube_of]                 # (T, 6)
+        tet_of = (r[:, None] >= pref).sum(-1).clamp_max(5)
+        prev = torch.where(
+            tet_of > 0,
+            pref.gather(1, (tet_of - 1).clamp_min(0)[:, None])[:, 0],
+            torch.zeros_like(tet_of))
+        k_of = (r - prev).clamp(0, 1)
+        case_t = cases[cube_of].gather(1, tet_of[:, None])[:, 0]
+        edges = device_constant(_EDGES_TABLE, dev, torch.long)[
+            tet_of, case_t, k_of]                                 # (T, 3, 2)
     ea = edges[..., 0].clamp_min(0)                               # (T, 3)
     eb = edges[..., 1].clamp_min(0)
 

@@ -1,5 +1,6 @@
-"""Rotation math (counterpart of avatarcap_tpu/ops/se3.py:
-``axis_angle_to_matrix`` and ``rigid_inverse``)."""
+"""Rotation and transform math (counterpart of avatarcap_tpu/ops/se3.py:
+``axis_angle_to_matrix``, ``rigid_inverse``, ``inverse_3x3``,
+``affine_inverse``, ``transform_points`` and ``transform_dirs``)."""
 
 from __future__ import annotations
 
@@ -38,3 +39,46 @@ def rigid_inverse(mats: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=mats.dtype,
                           device=mats.device).expand(top[..., :1, :].shape)
     return torch.cat([top, bottom], dim=-2)
+
+
+def inverse_3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of (..., 3, 3) matrices; a
+    determinant below 1e-20 in magnitude divides by 1."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() < 1e-20, torch.ones_like(det),
+                                det)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
+        torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
+        torch.stack([C, -(a * h - b * g), a * e - b * d], -1)], -2)
+    return adj * inv_det[..., None, None]
+
+
+def affine_inverse(mats: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 4, 4) affine transforms: inv([A t; 0 1]) =
+    [A^-1 -A^-1 t; 0 1], exact for a non-orthogonal A (blended LBS
+    matrices)."""
+    a_inv = inverse_3x3(mats[..., :3, :3])
+    t = torch.einsum("...ij,...j->...i", a_inv, mats[..., :3, 3])
+    top = torch.cat([a_inv, -t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=mats.dtype,
+                          device=mats.device).expand(top[..., :1, :].shape)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def transform_points(mats: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) affine mats applied to (..., 3) points (broadcast)."""
+    return (torch.einsum("...ij,...j->...i", mats[..., :3, :3], pts)
+            + mats[..., :3, 3])
+
+
+def transform_dirs(mats: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The linear part of (..., 4, 4) affine mats applied to (..., 3)
+    direction vectors."""
+    return torch.einsum("...ij,...j->...i", mats[..., :3, :3], dirs)

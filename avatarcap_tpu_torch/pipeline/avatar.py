@@ -1,7 +1,7 @@
 """GeoTexAvatar queries (counterpart of avatarcap_tpu/pipeline/avatar.py):
-the pose features, the occupancy query, the grid pose features, inverse
-skinning, and the masked query and volume rendering of posed, canonical
-and template-space points.
+the pose features, the occupancy query (the f32 module path, and kernel
+K1's), the grid pose features, inverse skinning, and the masked query and
+volume rendering of posed, canonical and template-space points.
 
 Plain functions over tensors; the pose feature map is an explicit
 activation computed once per pose. Layouts follow the JAX package's public
@@ -18,11 +18,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from avatarcap_tpu_torch.body.skinning import skin_points
-from avatarcap_tpu_torch.models.avatar import (GeoTexAvatar,
+from avatarcap_tpu_torch.models.avatar import (TEMPLATE_FREQS, WARP_FREQS,
+                                               GeoTexAvatar,
                                                sample_weight_volume)
 from avatarcap_tpu_torch.models.layers import f32_convolutions
 from avatarcap_tpu_torch.ops.fused_query import (pack_offset_weights,
-                                                 pack_template_weights)
+                                                 pack_template_weights,
+                                                 warp_template_query)
 from avatarcap_tpu_torch.ops.grid_sample import sample_feature_map_at_points
 from avatarcap_tpu_torch.ops.knn import knn, knn_gather
 from avatarcap_tpu_torch.ops.se3 import rigid_inverse
@@ -97,9 +99,51 @@ def query_occupancy(model: GeoTexAvatar, cano_pts: torch.Tensor,
 
 
 def pack_fused_query_weights(model: GeoTexAvatar):
-    """Operands of ops/fused_query.warp_template_query (eval only)."""
+    """Operands of ops/fused_query.warp_template_query (eval only), with
+    the template's ``if_type``. K1's input panels are PE(10)'s 63 rows and
+    the 3 + 64 decoder columns, so other encodings raise a ValueError:
+    such an avatar runs on the f32 module path."""
+    if model.encodings != (TEMPLATE_FREQS, WARP_FREQS):
+        raise ValueError(
+            f"positional encodings {model.encodings}: the kernels take "
+            f"({TEMPLATE_FREQS}, {WARP_FREQS}) only; run this avatar with "
+            "use_fused_query=False")
     return {"template": pack_template_weights(model.cano_template),
-            "offset": pack_offset_weights(model.warping_field)}
+            "offset": pack_offset_weights(model.warping_field),
+            "if_type": model.if_type}
+
+
+def fused_occupancy(packed: dict, occ: torch.Tensor) -> torch.Tensor:
+    """K1's raw geometry head -> the template's occupancy value: the
+    sigmoid for an ``occupancy`` packed set (applied after the kernel,
+    which computes what the TPU kernel computes), the SDF as it is."""
+    return torch.sigmoid(occ) if packed["if_type"] == "occupancy" else occ
+
+
+def query_occupancy_fused(packed: dict, cano_pts: torch.Tensor,
+                          pose_feat_map: torch.Tensor,
+                          statics: AvatarStatics):
+    """query_occupancy through kernel K1: per-point pose features (the
+    bilinear fetch in f32; K1's wrapper rounds them to bf16, as the TPU
+    kernel's does), then the warp + template in one launch. The occupancy
+    head's sigmoid follows the kernel, so the result matches the f32
+    module path for either ``if_type``.
+
+    Args:
+      packed: from pack_fused_query_weights; cano_pts: (B, N, 3);
+        pose_feat_map: (B, H, W, C).
+    Returns dict(cano_pts_ov (B, N, 1), nonrigid_offset (B, N, 3)).
+    """
+    B, N, _ = cano_pts.shape
+    pts_c = cano_pts - statics.cano_smpl_center[None, None]
+    pose_feat = sample_feature_map_at_points(
+        pose_feat_map.permute(0, 3, 1, 2), pts_c)              # (B, N, C)
+    out = warp_template_query(packed["offset"], packed["template"],
+                              cano_pts.reshape(B * N, 3),
+                              pose_feat.reshape(B * N, -1))
+    return {"cano_pts_ov": fused_occupancy(packed, out["occ"]).reshape(
+                B, N, 1),
+            "nonrigid_offset": out["offset"].reshape(B, N, 3)}
 
 
 def grid_pose_features(pose_feat_map: torch.Tensor, statics: AvatarStatics,

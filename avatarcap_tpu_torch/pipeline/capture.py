@@ -57,8 +57,8 @@ from avatarcap_tpu_torch.ops.volume_render import linspace01
 from avatarcap_tpu_torch.parallel.mesh import AXIS, canonical_device
 from avatarcap_tpu_torch.pipeline.avatar import (
     NEAR_SMPL_DIST, AvatarStatics, FrameInputs, compute_pose_features,
-    grid_pose_features, pack_fused_query_weights, query_occupancy,
-    render_rays, stage)
+    fused_occupancy, grid_pose_features, pack_fused_query_weights,
+    query_occupancy, render_rays, stage)
 from avatarcap_tpu_torch.render.camera import (
     cano_front_back_mvp, gl_perspective_projection_matrix, real2gl_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
@@ -108,7 +108,8 @@ class CaptureOptions:
     avatarcap_tpu/pipeline/capture.py for each field's rationale).
     use_fused_query runs K1 and K2 for the grid queries, and K1 or K3 for
     the NeRF colors (K3 for nerf_feat_mode="lerp" with
-    near_flag_mode="ray")."""
+    near_flag_mode="ray"); the kernels take avatars of the (10, 0)
+    positional encodings only, and AvatarCapture raises for others."""
 
     iso_value: float = 0.0
     max_tris: int = 1 << 20
@@ -414,7 +415,11 @@ class AvatarCapture:
     """Per-frame capture orchestrator over plain stage functions.
 
     Args:
-      avatar: the port's GeoTexAvatar (weights loaded; put in eval mode).
+      avatar: the port's GeoTexAvatar (weights loaded; put in eval mode),
+        SDF or occupancy (``options.iso_value`` is its level); with
+        ``use_fused_query`` its encodings (and tex_avatar's) must be
+        (10, 0), or the packing raises a ValueError: nothing falls back
+        to the f32 path on its own.
       statics: AvatarStatics; grid: CaptureGrid (tensors or arrays).
       recon: the port's ReconNetwork, needed by ``w_recon=True`` frames.
       tex_avatar: an optional texture-finetuned GeoTexAvatar for the NeRF
@@ -555,7 +560,9 @@ class AvatarCapture:
         recon = (copy.deepcopy(self.recon).to(device)
                  if self.recon is not None and not fused else None)
         with torch.inference_mode(), _on(device):
-            pq = ({k: packed_copy(v) for k, v in self.packed_query.items()}
+            pq = ({**self.packed_query,
+                   **{k: packed_copy(self.packed_query[k])
+                      for k in ("offset", "template")}}
                   if fused else None)
             pr = (packed_copy(self.packed_recon)
                   if fused and self.packed_recon is not None else None)
@@ -597,8 +604,9 @@ class AvatarCapture:
     def avatar_value_fn(self, feat: torch.Tensor):
         """The avatar's field on the pose features ``feat`` as the
         hierarchical query's ``(pts (N, 3), fine_flat_idx (N,)) -> (N,)``
-        value function: K1 on the grid's bf16 pose-feature columns, or the
-        f32 module path; one slab per mesh device with a shard mesh."""
+        value function: K1 on the grid's bf16 pose-feature columns (an
+        occupancy avatar's sigmoid after it), or the f32 module path; one
+        slab per mesh device with a shard mesh."""
         o, g, st = self.opt, self.grid, self.statics
         Z = g.vol_res[2]
         if o.use_fused_query:
@@ -609,9 +617,9 @@ class AvatarCapture:
                 spk = shard.packed_query
 
                 def vf(pts, fidx):
-                    return warp_template_query(
+                    return fused_occupancy(spk, warp_template_query(
                         spk["offset"], spk["template"], pts,
-                        cols[fidx.long() // Z])["occ"][:, 0]
+                        cols[fidx.long() // Z])["occ"][:, 0])
                 return vf
             return self._sharded(make_vf, pf_cols)
 
@@ -637,8 +645,8 @@ class AvatarCapture:
             pk = self.packed_query
             pf = grid_pose_features(feat, st, g.vol_res, g.valid_idx,
                                     dtype=torch.bfloat16)
-            occ = warp_template_query(pk["offset"], pk["template"],
-                                      g.valid_pts, pf)["occ"][:, 0]
+            occ = fused_occupancy(pk, warp_template_query(
+                pk["offset"], pk["template"], g.valid_pts, pf)["occ"][:, 0])
         else:
             occ = query_occupancy(self.avatar, g.valid_pts[None], feat,
                                   st)["cano_pts_ov"][0, :, 0]

@@ -1,6 +1,8 @@
 """Static-capacity software rasterizer (counterpart of
 avatarcap_tpu/render/raster.py: ``rasterize_index``, ``rasterize``,
-``rasterize_index_pair``, ``_big_triangle_pass`` and ``interpolate``).
+``rasterize_index_pair``, ``_big_triangle_pass`` and ``interpolate``, and
+the helpers ``transform_to_clip``, ``soup_to_tris`` and
+``indexed_to_soup``).
 
 Same algorithm and conventions as the JAX module, so outputs compare
 pixel for pixel: a static K x K candidate window anchored at the ceil of
@@ -397,3 +399,25 @@ def rasterize_index_pair(clip_front: torch.Tensor, clip_back: torch.Tensor,
             n_big=(is_big & (side if s else ~side)).sum().to(torch.int32)))
     return outs[0]._replace(overflow=overflow), \
         outs[1]._replace(overflow=overflow)
+
+
+def transform_to_clip(vertices: torch.Tensor, mvp: torch.Tensor
+                      ) -> torch.Tensor:
+    """(N, 3) world vertices x a (4, 4) row-major MVP -> (N, 4) clip
+    coordinates."""
+    vh = torch.cat([vertices, torch.ones_like(vertices[..., :1])], -1)
+    return torch.einsum("ij,nj->ni", mvp, vh)
+
+
+def soup_to_tris(vertices: torch.Tensor, num_tris: torch.Tensor,
+                 max_tris: int):
+    """A marching-cubes soup (3T, 3) -> ((T, 3, 3) vertices, (T,) valid:
+    the first ``num_tris``)."""
+    valid = torch.arange(max_tris, device=vertices.device) < num_tris
+    return vertices.reshape(max_tris, 3, 3), valid
+
+
+def indexed_to_soup(vertices: torch.Tensor, faces: torch.Tensor
+                    ) -> torch.Tensor:
+    """Indexed mesh -> per-triangle vertices (F, 3, 3)."""
+    return vertices[faces.long()]

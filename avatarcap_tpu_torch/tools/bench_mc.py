@@ -5,13 +5,15 @@ A body-scale ellipsoid in a 384 x 384 x 128 volume (a surface area like
 the capture's) through ops/marching_cubes.marching_tets without normals,
 with the trilinear-gradient normals, with the Sobel edge normals of
 normal_mode="mc_edge" (the Sobel volume timed alone too) and with
-"sobel_sample"'s resample at every soup vertex; and the active-cube mask
-with its compaction alone. Times are CUDA-event means over --iters calls
+"sobel_sample"'s resample at every soup vertex; the 6-tet triangulation
+(``method="tets"``, ~3x the triangles: TETS_TRIS_FACTOR x max_tris
+slots); and the active-cube mask with its compaction alone. Times are CUDA-event means over --iters calls
 after a warm-up (host-clock means with --device cpu, labelled "host").
 
 Usage: python -m avatarcap_tpu_torch.tools.bench_mc [--res X Y Z]
        [--max-tris N] [--max-active N] [--iters N] [--device D]
-prints one JSON line per pass, then the triangle and active-cube counts.
+prints one JSON line per pass, then the triangle and active-cube counts
+(the tets' beside them).
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ from avatarcap_tpu_torch.ops.sobel import (extract_normal_volume,
                                            sample_volume_normals)
 from avatarcap_tpu_torch.utils.timers import mean_ms
 
+# the 6-tet split emits ~3x the 256-case triangles of a surface (3.03x on
+# a smooth one): the tets pass's slots per 256-case slot
+TETS_TRIS_FACTOR = 3
+
 
 def ellipsoid_volume(res, device) -> torch.Tensor:
     """0.7 - |x / (0.8, 0.95, 0.7)| on [-1, 1]^3 sampled at ``res``: an
@@ -43,7 +49,8 @@ def ellipsoid_volume(res, device) -> torch.Tensor:
 def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
         iters=5, device=None) -> dict:
     """Each pass's mean ms (and the clock), the triangles and active
-    cubes of the volume, and the overflow bit."""
+    cubes of the volume, and the overflow bit; the tets' triangles and
+    overflow."""
     device = resolve_device(device)
     vol = ellipsoid_volume(res, device)
     bmin = torch.zeros(3, device=device)
@@ -53,6 +60,8 @@ def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
     kw = dict(max_tris=max_tris, max_active=max_active)
     nvol = extract_normal_volume(vol, voxel)
     plain = marching_tets(vol, 0.0, bmin, voxel, **kw)
+    tets_kw = dict(max_tris=TETS_TRIS_FACTOR * max_tris,
+                   max_active=max_active, method="tets")
 
     def active_part():
         v5 = vol[None, None]
@@ -72,6 +81,8 @@ def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
             vol, 0.0, bmin, voxel, normal_volume=nvol, **kw),
         "sobel_sample at every soup vertex": lambda: sample_volume_normals(
             vol, voxel, mesh_grid_coords(plain.vertices, bounds)),
+        "marching_tets (tets, no normals)": lambda: marching_tets(
+            vol, 0.0, bmin, voxel, **tets_kw),
         "active mask + compaction": active_part,
     }
     out = {"res": list(res), "max_tris": max_tris, "max_active": max_active,
@@ -83,6 +94,10 @@ def run(res=(384, 384, 128), max_tris=1 << 20, max_active=1 << 18,
         out["triangles"] = int(plain.num_tris)
         out["active_cubes"] = int(active_part()[1])
         out["overflow"] = bool(plain.overflow)
+        tets = marching_tets(vol, 0.0, bmin, voxel, **tets_kw)
+        out["tets_max_tris"] = tets_kw["max_tris"]
+        out["tets_triangles"] = int(tets.num_tris)
+        out["tets_overflow"] = bool(tets.overflow)
     return out
 
 
@@ -99,8 +114,9 @@ def main(argv=None) -> int:
               args.device)
     for name, p in rec["passes"].items():
         print(json.dumps({"pass": name, **p}), flush=True)
-    print(json.dumps({k: rec[k] for k in ("triangles", "active_cubes",
-                                          "overflow", "device")}))
+    print(json.dumps({k: rec[k] for k in (
+        "triangles", "active_cubes", "overflow", "tets_triangles",
+        "tets_overflow", "device")}))
     return 0
 
 

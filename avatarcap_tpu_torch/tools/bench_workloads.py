@@ -110,14 +110,15 @@ def toy_avatar_statics(dense: bool = True, device="cpu"):
     return params, statics, v
 
 
-def random_avatar(generator: torch.Generator) -> GeoTexAvatar:
-    """GeoTexAvatar at its published widths with every weight drawn from
-    ``generator``: LeCun-uniform weights, U(-0.1, 0.1) biases, BatchNorm
-    statistics around (0, 1). The offset head is U(+-0.002), so warps are
+def random_avatar(generator: torch.Generator, **form) -> GeoTexAvatar:
+    """GeoTexAvatar at its published widths (``form``: its if_type and
+    positional encodings, the capture's by default) with every weight
+    drawn from ``generator``: LeCun-uniform weights, U(-0.1, 0.1) biases,
+    BatchNorm statistics around (0, 1). The offset head is U(+-0.002), so warps are
     a few cm (a trained warp's scale), and the geometry head U(+-0.1), so
     the field is not the +-1e-5 init noise around the iso level.
     Untrained all the same: its iso-surface is a random field."""
-    model = GeoTexAvatar()
+    model = GeoTexAvatar(**form)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() > 1:

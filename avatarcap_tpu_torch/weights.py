@@ -7,7 +7,11 @@ those converters read, so the port's ``GeoTexAvatar`` and
 ``ReconNetwork`` also load released AvatarCap checkpoints (through
 ``load_reference_state_dict``); ``generator_state_dict_from_jax`` does the
 same for the pix2pixHD generators (the inverse of convert_global_generator,
-convert_local_enhancer and convert_encoder). Layouts:
+convert_local_enhancer and convert_encoder). The avatar bridge reads every
+width from the parameters' shapes, so it serves every positional
+encoding; ``hgfilter_state_dict_from_jax`` (any stack count) and
+``unet_state_dict_from_jax`` (UnetNoCond5DS / 6DS / 7DS) carry the
+modules no network of the capture uses. Layouts:
 
 - flax Conv kernel (kh, kw, I, O)           -> torch Conv2d (O, I, kh, kw)
 - ConvTranspose kernel (kh, kw, I, O)       -> torch (I, O, kh, kw), a pure
@@ -56,6 +60,13 @@ def _conv2d(sd, name, p):
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _conv_t(sd, name, p):
+    # (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw)
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
 def _mlp(sd, prefix, p, n_hidden):
     for i in range(n_hidden):
         _dense(sd, f"{prefix}fc_list.{i}.0", p[f"fc{i}"])
@@ -63,19 +74,28 @@ def _mlp(sd, prefix, p, n_hidden):
 
 
 def _unet(sd, prefix, p, s):
-    for name in ("conv1", "conv2", "conv3", "conv4", "conv5", "conv6",
-                 "conv7"):
-        _conv2d(sd, f"{prefix}{name}.conv", p[name]["conv"])
+    """A POP U-Net's blocks by their flax names: ``conv*`` Conv2DBlocks,
+    up blocks with a transposed convolution (``up``) or an upsample +
+    conv (``up_conv``, torch ``up.1``); a BatchNorm where the block has
+    statistics."""
+    for name, block in p.items():
+        if "conv" in block:
+            _conv2d(sd, f"{prefix}{name}.conv", block["conv"])
+        elif "up" in block:
+            _conv_t(sd, f"{prefix}{name}.up", block["up"])
+        else:
+            _conv2d(sd, f"{prefix}{name}.up.1", block["up_conv"])
         if name in s:
             _bn(sd, f"{prefix}{name}.bn", s[name]["bn"])
-    for name in ("upconv1", "upconv2", "upconv3"):
-        k = np.asarray(p[name]["up"]["kernel"])            # (kh, kw, I, O)
-        sd[f"{prefix}{name}.up.weight"] = _t(k.transpose(2, 3, 0, 1))
-        _bn(sd, f"{prefix}{name}.bn", s[name]["bn"])
-    for name in ("upconvC5", "upconvC6", "upconvC7"):
-        _conv2d(sd, f"{prefix}{name}.up.1", p[name]["up_conv"])
-        if name in s:
-            _bn(sd, f"{prefix}{name}.bn", s[name]["bn"])
+
+
+def unet_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a UnetNoCond5DS / 6DS / 7DS
+    -> the port's state_dict of the same U-Net (the reference's
+    network/unets.py key names)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    _unet(sd, "", variables["params"], variables.get("batch_stats", {}))
+    return sd
 
 
 def avatar_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -117,6 +137,40 @@ def _hg_convblock(sd, name, p):
         _conv2d(sd, f"{name}.downsample.2", p["downsample_conv"])
 
 
+def _hgfilter(sd, prefix, enc, depth, n_stack):
+    _conv2d(sd, f"{prefix}conv1", enc["conv1"])
+    _groupnorm(sd, f"{prefix}bn1", enc["bn1"])
+    for name in ("conv2", "conv3", "conv4"):
+        _hg_convblock(sd, f"{prefix}{name}", enc[name])
+    for i in range(n_stack):
+        hg = enc[f"m{i}"]
+        for lvl in range(depth, 0, -1):
+            for b in ("b1", "b2", "b3"):
+                _hg_convblock(sd, f"{prefix}m{i}.{b}_{lvl}",
+                              hg[f"{b}_{lvl}"])
+        _hg_convblock(sd, f"{prefix}m{i}.b2_plus_1", hg["b2_plus_1"])
+        _hg_convblock(sd, f"{prefix}top_m_{i}", enc[f"top_m_{i}"])
+        _conv2d(sd, f"{prefix}conv_last{i}", enc[f"conv_last{i}"])
+        _groupnorm(sd, f"{prefix}bn_end{i}", enc[f"bn_end{i}"])
+        _conv2d(sd, f"{prefix}l{i}", enc[f"l{i}"])
+        if i < n_stack - 1:
+            _conv2d(sd, f"{prefix}bl{i}", enc[f"bl{i}"])
+            _conv2d(sd, f"{prefix}al{i}", enc[f"al{i}"])
+
+
+def hgfilter_state_dict_from_jax(variables: Mapping, depth: int = 4,
+                                 n_stack: int = 1
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of an HGFilter -> the port's HGFilter
+    state_dict, stacks joined by ``bl{i}`` / ``al{i}`` (the reference's
+    network/HGFilters.py names; convert_torch_ckpt.py:convert_hgfilter
+    reads one stack's keys, so this bridge is the inverse of the JAX
+    variables themselves)."""
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+    _hgfilter(sd, "", variables["params"], depth, n_stack)
+    return sd
+
+
 def recon_state_dict_from_jax(variables: Mapping,
                               depth: int = 4) -> Dict[str, torch.Tensor]:
     """flax ``{"params"}`` of ReconNetwork -> the port's ReconNetwork
@@ -125,20 +179,7 @@ def recon_state_dict_from_jax(variables: Mapping,
     (I, O) -> ``weight_v`` (O, I, 1)."""
     params = variables["params"]
     sd: Dict[str, torch.Tensor] = OrderedDict()
-    enc = params["image_encoder"]
-    _conv2d(sd, "image_encoder.conv1", enc["conv1"])
-    _groupnorm(sd, "image_encoder.bn1", enc["bn1"])
-    for name in ("conv2", "conv3", "conv4"):
-        _hg_convblock(sd, f"image_encoder.{name}", enc[name])
-    hg = enc["m0"]
-    for lvl in range(depth, 0, -1):
-        for b in ("b1", "b2", "b3"):
-            _hg_convblock(sd, f"image_encoder.m0.{b}_{lvl}", hg[f"{b}_{lvl}"])
-    _hg_convblock(sd, "image_encoder.m0.b2_plus_1", hg["b2_plus_1"])
-    _hg_convblock(sd, "image_encoder.top_m_0", enc["top_m_0"])
-    _conv2d(sd, "image_encoder.conv_last0", enc["conv_last0"])
-    _groupnorm(sd, "image_encoder.bn_end0", enc["bn_end0"])
-    _conv2d(sd, "image_encoder.l0", enc["l0"])
+    _hgfilter(sd, "image_encoder.", params["image_encoder"], depth, 1)
     dec = params["image_decoder"]
     for i in range(3):
         p = dec[f"fc{i}"]
@@ -148,12 +189,6 @@ def recon_state_dict_from_jax(variables: Mapping,
         sd[f"{name}.bias"] = _t(p["bias"])
     _dense(sd, "image_decoder.fc_list.3", dec["fc3"])
     return sd
-
-
-def _conv_t(sd, name, p):
-    # (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw)
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
-    sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _resnet_block(sd, name, p):

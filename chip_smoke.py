@@ -21,6 +21,12 @@ Phases, each fatal on failure:
      time kernel, plain version and bound; then K1's two halves, K4
      (template_query) and K5 (offset_query), on the coarse launch's
      points and [points, pose features];
+     [query_fused]: pipeline/avatar.query_occupancy_fused (the per-point
+     pose-feature fetch in f32, then K1) on the refine launch's 1,966,080
+     points with the frame's pose features, its launches counted (1 K1),
+     timed beside K1 alone and the fetch alone, and held against its plain
+     version (the fetch, then K1's plain version) on 65,536 of them at
+     K1's tolerances;
   4. one warm-up and one timed avatar-only capture frame,
      process_frame(item, w_recon=False, w_nerf=False), with the kernel
      launch counts set to 0 just before and read just after the timed
@@ -49,6 +55,14 @@ Phases, each fatal on failure:
      timed frames with the launch counts read around each (2 K1, 2 K2 and
      2 K3 launches), the stage times, and one avatar-only textured frame
      (2 K1, 1 K3);
+     [occupancy]: the fitted subject's avatar weights in
+     GeoTexAvatar(if_type="occupancy") at iso_value 0.5 (sigmoid(x) >= 0.5
+     iff x >= 0: the SDF frame's surface), through a warm-up and two timed
+     textured production frames (the launch counts set to 0 just before
+     and read just after each: 2 K1, 2 K2, 2 K3), their triangle counts
+     beside the SDF frame's, no overflow; then the small subject's three
+     frame forms in the occupancy form on the card against the CPU, as
+     phase 10 holds the SDF ones;
   7. [capacity]: tools/capacity_stats on the fitted subject, each count
      beside its capacity and the count the JAX package recorded for its
      fitted bench body, and the three frame forms' overflow bits;
@@ -85,7 +99,8 @@ Phases, each fatal on failure:
      which must agree; the textured frame's colors through the kernels on
      the card also against the f32 path on the CPU;
  11. the training phase (tools/bench_train.run); [tools]: one short run
-     of tools/bench_mc and one of tools/bench_raster;
+     of tools/bench_mc (its tets triangulation included: neither it nor
+     the 256-case one may overflow) and one of tools/bench_raster;
  12. the command line ([cli]): the port's generate_subject writes a
      subject (the toy body's 6,752 vertices as an SMPL pkl, the canonical
      and one posed pose, 2 views, 512^2 images, 256^2 position maps,
@@ -102,7 +117,11 @@ Phases, each fatal on failure:
      directly on the same dataset item and weights; then the same with
      --stream 2 (one pipelined batch of both frames), whose JPEGs must
      equal the first run's byte for byte and whose PLYs must have its
-     triangle counts;
+     triangle counts; then every count of frame 0 beside its capacity
+     (tools/capacity_stats) through the kernels and through the f32
+     module path, and the rows over capacity; the live position pass's
+     inputs go to chiprun_out/cli_live_pass.npz (for
+     tests/jax_cli_live_pass.py);
  13. [preprocess] (tools/bench_preprocess.run_scan): a scan made from the
      toy body (posed at the bench pose, subdivided twice to 109,442
      vertices, displaced 6 mm by wrinkle_field, colored by position)
@@ -356,6 +375,136 @@ def check_k4_k5(capture, pts, pf, device):
              "replaces": "avatarcap_tpu/ops/pallas_query.py:172",
              "max_abs_err": off_err, "tolerance": K1_TOL["offset"], **k5,
              "library_ms": None})
+
+
+def query_fused_phase(capture, item, pts, device, n_check=65536):
+    """[query_fused]: query_occupancy_fused on the refine launch's points
+    ``pts`` (N, 3) with the frame's pose features: one counted call (1 K1
+    launch), CUDA-event times of it, of K1 alone on the same points and
+    per-point features, and of the fetch alone; its output against its
+    plain version (the same fetch, then K1's plain version) on the first
+    ``n_check`` points at K1's tolerances."""
+    import torch
+    from avatarcap_tpu_torch.ops.fused_query import (
+        warp_template_query, warp_template_query_plain)
+    from avatarcap_tpu_torch.ops.grid_sample import (
+        sample_feature_map_at_points)
+    from avatarcap_tpu_torch.pipeline.avatar import (
+        compute_pose_features, fused_occupancy, query_occupancy_fused)
+    from avatarcap_tpu_torch.tools.bench_kernels import event_ms
+    pk, st = capture.packed_query, capture.statics
+    wrappers = _wrappers()
+    with torch.inference_mode():
+        pos_map = torch.as_tensor(item["smpl_pos_map"], device=device)[None]
+        feat = compute_pose_features(capture.avatar, pos_map)
+        q = pts[None]
+
+        def fetch(p):
+            return sample_feature_map_at_points(
+                feat.permute(0, 3, 1, 2), p - st.cano_smpl_center)[0]
+
+        _sync(device)
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = query_occupancy_fused(pk, q, feat, st)
+        _sync(device)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0}:
+            raise AssertionError(f"query_occupancy_fused launched {launches}"
+                                 ", expected one K1 launch")
+        n = pts.shape[0]
+        if (out["cano_pts_ov"].shape != (1, n, 1)
+                or out["nonrigid_offset"].shape != (1, n, 3)
+                or not _finite(list(out.values()))):
+            raise AssertionError("query_occupancy_fused's outputs have the "
+                                 "wrong shape or are not finite")
+        del out
+        pf = fetch(q)
+        ms = event_ms(lambda: query_occupancy_fused(pk, q, feat, st), 10)
+        k1_ms = event_ms(lambda: warp_template_query(
+            pk["offset"], pk["template"], pts, pf), 10)
+        fetch_ms = event_ms(lambda: fetch(q), 10)
+        del pf
+        sub = q[:, :n_check]
+
+        def plain():
+            r = warp_template_query_plain(pk["offset"], pk["template"],
+                                          sub[0], fetch(sub))
+            return fused_occupancy(pk, r["occ"]), r["offset"]
+
+        got = query_occupancy_fused(pk, sub, feat, st)
+        ref_occ, ref_off = plain()
+        plain_ms = event_ms(plain, 3)
+    errs = {"occ": float((got["cano_pts_ov"][0] - ref_occ).abs().max()),
+            "offset": float((got["nonrigid_offset"][0] - ref_off).abs().max())}
+    if any(e > K1_TOL[k] for k, e in errs.items()):
+        raise AssertionError(f"query_occupancy_fused disagrees with its plain "
+                             f"version: {errs} (tolerance {K1_TOL})")
+    rec = {"points": n, "launches": launches["k1"], "ms": ms,
+           "k1_ms": k1_ms, "fetch_ms": fetch_ms,
+           "plain_points": int(sub.shape[1]), "plain_ms": plain_ms,
+           "max_abs_err": errs}
+    print(f"[query_fused] {json.dumps(rec)}")
+    return rec
+
+
+def occupancy_capture(capture, device):
+    """``capture``'s grid, ReconNet, texture avatar and options with its
+    avatar's weights in GeoTexAvatar(if_type="occupancy") and iso_value
+    0.5: sigmoid(x) >= 0.5 iff x >= 0, so the surface is the SDF
+    capture's (up to the refinement band and interpolation)."""
+    import dataclasses
+    import torch
+    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
+    from avatarcap_tpu_torch.pipeline.capture import AvatarCapture
+    with torch.random.fork_rng(devices=[]):
+        occ = GeoTexAvatar(if_type="occupancy")
+    occ.load_state_dict(capture.avatar.state_dict())
+    return AvatarCapture(occ, capture.statics, capture.grid,
+                         recon=capture.recon, tex_avatar=capture.tex_avatar,
+                         options=dataclasses.replace(capture.opt,
+                                                     iso_value=0.5),
+                         device=device)
+
+
+def occupancy_phase(capture, item, recon_kw, sdf_frame, device):
+    """[occupancy]: the textured production frame of the occupancy form
+    of ``capture``'s avatar (occupancy_capture): a warm-up, two counted
+    and timed frames (2 K1, 2 K2, 2 K3 launches each, no overflow), their
+    triangle counts against the SDF textured frame's ``sdf_frame``, the
+    stage times; then the small subject's occupancy frames on the card
+    against the CPU (check_small_frame)."""
+    occ = occupancy_capture(capture, device)
+    if occ.packed_query["if_type"] != "occupancy":
+        raise AssertionError("the occupancy capture packed an SDF head")
+    run_frame(occ, item, device, w_nerf=True, w_recon=True, **recon_kw)
+    frames = []
+    for _ in range(2):
+        _, rec = run_frame(occ, item, device, w_nerf=True, w_recon=True,
+                           **recon_kw)
+        got = (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"])
+        if got != (2, 2, 2):
+            raise AssertionError(f"the occupancy textured frame launched K1, "
+                                 f"K2, K3 {got} times, expected 2, 2, 2")
+        if rec["overflow"]:
+            raise AssertionError(f"the occupancy textured frame overflows: "
+                                 f"{rec}")
+        frames.append(rec)
+    out = dict(frames[0])
+    out["runs"] = frames
+    out["sdf_num_tris"] = sdf_frame["num_tris"]
+    out["sdf_recon_num_tris"] = sdf_frame["recon_num_tris"]
+    out["num_tris_ratio"] = out["num_tris"] / sdf_frame["num_tris"]
+    out["recon_num_tris_ratio"] = (out["recon_num_tris"]
+                                   / sdf_frame["recon_num_tris"])
+    out["stages"] = stage_times(occ, item, device, w_nerf=True, w_recon=True,
+                                **recon_kw)
+    del occ
+    print(f"[occupancy] {json.dumps(out)}")
+    out["small_frame"] = check_small_frame(device, form="occupancy")
+    print(f"[occupancy] small subject, card against CPU: "
+          f"{json.dumps(out['small_frame'])}")
+    return out
 
 
 def _finite(tensors):
@@ -803,11 +952,12 @@ def card_cpu_agreement(a, b, w_recon, key):
     return rec
 
 
-def check_small_frame(device):
+def check_small_frame(device, form="sdf"):
     """The avatar-only, the production and the textured production frame
     on a small subject, on the card and on the CPU, through the f32 module
     path (use_fused_query=False) and through the kernels (their plain
-    versions on the CPU). The textured frames' colors are matched vertex
+    versions on the CPU); ``form="occupancy"`` runs the subject's avatar
+    in the occupancy form (occupancy_capture). The textured frames' colors are matched vertex
     by vertex through the soups' edge keys. The textured frame takes 4
     samples per ray, so that the kernels' 4 anchored near flags and lerped
     pose features are the f32 path's per-sample KNN and fetch: the card's
@@ -822,6 +972,8 @@ def check_small_frame(device):
         for dev in (device, cpu):
             cap, item, recon_kw, _ = small_subject(dev,
                                                    use_fused_query=fused)
+            if form == "occupancy":
+                cap = occupancy_capture(cap, dev)
             if fused and dev == device:
                 card_cap = cap
             outs[fused, dev.type] = (
@@ -1099,6 +1251,10 @@ def tools_phase(device):
             f"{k} {v['ms']:.3f} ms" for k, v in r["passes"].items())
             + "; " + json.dumps({k: v for k, v in r.items()
                                  if k != "passes"}))
+    mc = rec["bench_mc"]
+    if mc["overflow"] or mc["tets_overflow"] or not (
+            mc["triangles"] > 0 and mc["tets_triangles"] > mc["triangles"]):
+        raise AssertionError(f"bench_mc's ellipsoid: {mc}")
     return rec
 
 
@@ -1330,6 +1486,41 @@ def cli_phase(device, network_dirs):
         raise AssertionError(
             f"the CLI's avatar PLY has {rec['ply_triangles']['avatar']} "
             f"triangles, process_frame {rec['process_frame_triangles']}")
+    # where the CLI subject's frame overflows: every count beside its
+    # capacity (tools/capacity_stats) through the kernels and through the
+    # f32 module path (the path tests/test_torch_capture.py holds equal to
+    # the JAX package's XLA path, count for count)
+    import dataclasses
+    from avatarcap_tpu_torch.tools.capacity_stats import capacity_stats
+    stats_kw = dict(inferred_normal=normal, camera=ds.data_config["camera"],
+                    neck_vertex_idx=cli.NECK_VERTEX_IDX)
+    rec["capacity"] = {"kernels": capacity_stats(capture, item, **stats_kw)}
+    f32 = AvatarCapture(
+        avatar, statics, capture.grid, recon=recon, tex_avatar=tex,
+        options=dataclasses.replace(capture.opt, use_fused_query=False),
+        device=device)
+    rec["capacity"]["f32"] = capacity_stats(f32, item, **stats_kw)
+    del f32
+    # the inputs of the lift's live position pass, where the frame
+    # overflows, for tests/jax_cli_live_pass.py (the JAX package's pass
+    # on them, on the CPU)
+    live = res["live_mesh"]
+    h, w = normal.shape[:2]
+    mvp = capture._projection(ds.data_config["camera"], h, w) @ \
+        torch.as_tensor(item["w2c_RT"], device=device)
+    o = capture.opt
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    np.savez_compressed(
+        os.path.join(HERE, "chiprun_out", "cli_live_pass.npz"),
+        vertices=live.vertices.cpu().numpy(), valid=live.valid.cpu().numpy(),
+        mvp=mvp.cpu().numpy(), height=h, width=w, window=o.cano_window,
+        big_tri_capacity=o.live_big_tris,
+        max_candidates=o.raster_max_candidates)
+    for path, stats in rec["capacity"].items():
+        over = {k: v for k, v in stats.items()
+                if isinstance(v, dict) and v["count"] > v["capacity"]}
+        print(f"[cli] capacity ({path}): frame overflow "
+              f"{stats['frame_overflow']}; over capacity: {json.dumps(over)}")
     print(f"[cli] subject write {rec['subject_write_s']:.2f} s; train CLI "
           f"(2 epochs) {rec['train_cli_s']:.2f} s; test grid "
           f"{rec['test_grid_s']:.2f} s (inside test {rec['inside_test_s']:.2f}"
@@ -1392,10 +1583,14 @@ def main() -> int:
     k1["refined_nodes"] = n_refined
     print(f"[k1] {json.dumps(k1)}")
     k4, k5 = check_k4_k5(capture, *recorded[0], device)
-    del recorded
     print(f"[k4] {json.dumps(k4)}")
     print(f"[k5] {json.dumps(k5)}")
     mark("k1_k4_k5")
+    record["query_fused"] = query_fused_phase(capture, item, recorded[-1][0],
+                                              device)
+    k1["query_fused_ms"] = record["query_fused"]["ms"]
+    del recorded
+    mark("query_fused")
 
     run_frame(capture, item, device, w_recon=False)           # warm-up
     _, frame = run_frame(capture, item, device, w_recon=False)
@@ -1421,6 +1616,9 @@ def main() -> int:
     record["frame_w_nerf"] = frame_n
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
     mark("k3_frame_w_nerf")
+    record["occupancy"] = occupancy_phase(capture, item, recon_kw, frame_n,
+                                          device)
+    mark("occupancy")
 
     record["capacity"] = capacity_phase(
         capture, item, recon_kw, {"avatar_only": frame,

@@ -740,3 +740,90 @@ def test_generator_on_card_matches_cpu(card):
         again = gen_card(x.to(card))
     assert torch.equal(got, again)
     assert float((got.cpu() - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_occupancy_query_fused_on_card_matches_plain(card):
+    """query_occupancy_fused of an occupancy avatar on the card (the
+    per-point fetch, one K1 launch, the sigmoid after it) against its
+    plain version (the same fetch, K1's plain version, the sigmoid) at
+    K1's tolerances; values in (0, 1) on both sides of 0.5."""
+    from avatarcap_tpu_torch.ops.fused_query import (
+        warp_template_query, warp_template_query_plain)
+    from avatarcap_tpu_torch.ops.grid_sample import (
+        sample_feature_map_at_points)
+    from avatarcap_tpu_torch.pipeline.avatar import (pack_fused_query_weights,
+                                                     query_occupancy_fused)
+    from avatarcap_tpu_torch.tools.bench_workloads import (random_avatar,
+                                                           toy_avatar_statics)
+    model = random_avatar(torch.Generator().manual_seed(5),
+                          if_type="occupancy").to(card)
+    _, statics, _ = toy_avatar_statics(dense=False, device=card)
+    gen = torch.Generator().manual_seed(6)
+    pts = (statics.cano_smpl_center.cpu()
+           + torch.rand((1, 20000, 3), generator=gen) * 0.8 - 0.4).to(card)
+    feat = torch.randn((1, 128, 128, 64), generator=gen).to(card)
+    with torch.no_grad():
+        pk = pack_fused_query_weights(model)
+        before = warp_template_query.launches
+        got = query_occupancy_fused(pk, pts, feat, statics)
+        torch.cuda.synchronize()
+        assert warp_template_query.launches == before + 1
+        pf = sample_feature_map_at_points(feat.permute(0, 3, 1, 2),
+                                          pts - statics.cano_smpl_center)
+        ref = warp_template_query_plain(pk["offset"], pk["template"], pts[0],
+                                        pf[0])
+    assert pk["if_type"] == "occupancy"
+    occ = got["cano_pts_ov"][0]
+    torch.testing.assert_close(occ, torch.sigmoid(ref["occ"]),
+                               atol=ATOL["occ"], rtol=0)
+    torch.testing.assert_close(got["nonrigid_offset"][0], ref["offset"],
+                               atol=ATOL["offset"], rtol=0)
+    assert 0.0 < float(occ.min()) < 0.5 < float(occ.max()) < 1.0
+
+
+@pytest.mark.cuda
+def test_other_encodings_f32_frame_on_card_matches_cpu(card):
+    """An avatar of positional encodings (8, 2) (the kernels take (10, 0)
+    only) through the f32 module path's avatar-only frame on the small
+    subject, card against CPU at chip_smoke.py's [small] tolerances; its
+    kernel path refuses it."""
+    from avatarcap_tpu_torch.pipeline.capture import AvatarCapture
+    from avatarcap_tpu_torch.tools.bench_workloads import random_avatar
+    model = random_avatar(torch.Generator().manual_seed(8),
+                          pos_encoding_template=8, pos_encoding_warp=2)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        cap, item, _, _ = _small_subject(dev, use_fused_query=False)
+        cap = AvatarCapture(model, cap.statics, cap.grid, options=cap.opt,
+                            device=dev)
+        out[dev.type] = cap.process_frame(item, w_recon=False)
+    with pytest.raises(ValueError, match="use_fused_query=False"):
+        AvatarCapture(model, cap.statics, cap.grid, device="cpu")
+    a, b = out["cuda"], out["cpu"]
+    ta, tb = int(a["cano_mesh"].num_tris), int(b["cano_mesh"].num_tris)
+    assert ta > 0 and abs(ta - tb) <= 0.01 * tb
+    close = (a["front_avatar_normal"].cpu()
+             - b["front_avatar_normal"]).abs().max(-1).values < 1e-2
+    assert float(close.float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_hgfilter_forms_on_card_match_cpu(card):
+    """HGFilter with 2x average pooling, two stacks and the tanh output
+    (depth 4, 256^2 input) on the card and on the CPU under
+    f32_convolutions: within 1e-3."""
+    from avatarcap_tpu_torch.models.hourglass import HGFilter
+    from avatarcap_tpu_torch.models.layers import f32_convolutions
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        net = HGFilter(depth=4, in_ch=6, last_ch=32, down_type="ave_pool",
+                       n_stack=2, use_sigmoid=True)
+    x = torch.randn((1, 6, 256, 256),
+                    generator=torch.Generator().manual_seed(12))
+    with torch.no_grad(), f32_convolutions():
+        ref, ref_normx = net(x)
+        got, got_normx = net.to(card)(x.to(card))
+    assert len(got) == 2 and got[1].shape == (1, 32, 64, 64)
+    for g, r in zip(got + [got_normx], ref + [ref_normx]):
+        assert float((g.cpu() - r).abs().max()) <= 1e-3

@@ -57,8 +57,11 @@ def _torch_threads():
 def test_load_config_matches_jax(tmp_path, extra):
     """configs/example.yaml, and a YAML that sets every key to a value
     other than its default, load to the JAX config's values; the port's
-    one addition, testing.capture_options, is read too (JAX drops it)."""
+    one addition, testing.capture_options, is read too (JAX drops it).
+    The CLI builds the config's avatar form (if_type, positional
+    encodings: (8, 2) occupancy in the second)."""
     from avatarcap_tpu.config import load_config as jload
+    from avatarcap_tpu_torch.cli import _new_avatar
     from avatarcap_tpu_torch.config import load_config
     if extra is None:
         path = "configs/example.yaml"
@@ -73,6 +76,11 @@ def test_load_config_matches_jax(tmp_path, extra):
     ref = dataclasses.asdict(jload(path))
     assert got["testing"].pop("capture_options") == (extra or {})
     assert got == ref
+    cfg = load_config(path)
+    avatar = _new_avatar(cfg, 0)
+    assert avatar.if_type == cfg.if_type
+    assert avatar.encodings == (cfg.model.cano_template_pos_encoding,
+                                cfg.model.warping_field_pos_encoding)
     if extra is not None:
         defaults = dataclasses.asdict(type(load_config(path))())
         defaults["testing"].pop("capture_options")

@@ -1,6 +1,7 @@
 """Normal fusion of the port against the JAX package: morphology, the
 inverse skinning rotation, the single perspective rasterizer pass, the
-lift of image normals, and the two-phase merge.
+lift of image normals and its standalone canonical render, and the
+two-phase merge.
 
 Inputs are drawn with numpy and given to both sides. Everything runs in
 float32 on the CPU (conftest pins JAX matmuls to "highest"). Morphology is
@@ -167,6 +168,49 @@ def test_lift_image_normals_matches_jax(live_body):
     assert (rv != gv).mean() < 2e-3
     both = rv & gv
     np.testing.assert_allclose(got[both], ref[both], atol=1e-5)
+
+
+def test_canonicalize_normal_map_matches_jax(live_body):
+    """The standalone lift + canonical front/back render against JAX's
+    canonicalize_normal_map on the live body (its canonical soup the live
+    one moved back by a fixed offset), compared outside the raster's
+    eps-slack boundary band. A lifted vertex on the visibility threshold
+    may flip (test_lift_image_normals_matches_jax), which changes the
+    pixels of its triangles: 99% of the pixels within 1e-5, all within
+    the unit normals' range."""
+    from avatarcap_tpu.fusion.normal_fusion import canonicalize_normal_map
+    from avatarcap_tpu.render.camera import cano_front_back_mvp
+    from avatarcap_tpu_torch.fusion.normal_fusion import (
+        canonicalize_normal_map as tcanon)
+    tris, valid, mats, w2c, cam, normal = live_body
+    _, proj = _clip(tris, w2c, cam, 128)
+    cano = (tris - np.array([0.02, -0.03, 0.01], np.float32)).astype(
+        np.float32)
+    center = cano.reshape(-1, 3).mean(0).astype(np.float32)
+    fmvp, fmv, bmvp, bmv = cano_front_back_mvp(center)
+    vert_mats = mats.reshape(-1, 3, 4, 4)
+    args = (cam["fx"], cam["fy"], cam["cx"], cam["cy"], 128, 128)
+    ref = canonicalize_normal_map(
+        *(jnp.asarray(a) for a in (cano, tris, valid, normal, vert_mats, w2c,
+                                   proj, fmvp, fmv, bmvp, bmv)),
+        *args, res=128, window=4)
+    got = tcanon(*(_t(a) for a in (cano, tris, valid, normal, vert_mats, w2c,
+                                   proj, fmvp, fmv, bmvp, bmv)),
+                 *args, res=128, window=4)
+    covered = []
+    for g, r in zip(got, ref):
+        g, r = g.numpy(), np.asarray(r)
+        assert g.shape == r.shape == (128, 128, 3)
+        gm, rm = np.abs(g).sum(-1) > 0, np.abs(r).sum(-1) > 0
+        covered.append(int(rm.sum()))
+        assert (gm != rm).mean() < 5e-3
+        ok = _band_ok(gm, rm) & rm
+        d = np.abs(g[ok] - r[ok]).max(-1)
+        assert (d <= 1e-5).mean() >= 0.99, (d <= 1e-5).mean()
+        assert d.max() <= 2.0
+    # the capture camera looks at the body's back: the back render holds
+    # the lifted normals
+    assert covered[1] > 500, covered
 
 
 def test_axis_angle_gradient_at_zero_is_finite():

@@ -1,5 +1,6 @@
 """Port geometry stages against their JAX counterparts on numpy-seeded
-inputs: compaction, marching tets, the skinning volume and volume
+inputs: compaction, marching tets (both triangulations), the se3 and
+raster soup helpers, the skinning volume, volume skinning and normal
 skinning, and the canonical mirror-pair raster with interpolation.
 
 Everything runs in float32 on the CPU with the same formulas in the same
@@ -74,26 +75,91 @@ def _field(shape, seed):
     return (0.6 - r + noise).astype(np.float32)
 
 
-@pytest.mark.parametrize("caps", [(1 << 13, 1 << 12), (600, 200)],
-                         ids=["fits", "overflows"])
-def test_marching_tets(caps):
+@pytest.mark.parametrize("caps,method", [
+    ((1 << 13, 1 << 12), "mc256"), ((600, 200), "mc256"),
+    ((1 << 13, 1 << 12), "tets"), ((600, 200), "tets")],
+    ids=["fits", "overflows", "tets-fits", "tets-overflows"])
+def test_marching_tets(caps, method):
+    """Both triangulations (the 256-case tables and the 6-tet split) slot
+    for slot against JAX's, with capacities that fit and that overflow;
+    edge keys on the tets' fitting case."""
     from avatarcap_tpu.ops.marching_cubes import marching_tets
     from avatarcap_tpu_torch.ops.marching_cubes import marching_tets as tmt
     max_tris, max_active = caps
     vol = _field((22, 19, 17), seed=1)
     bmin = np.array([-0.4, -0.5, -0.3], np.float32)
     voxel = np.array([0.04, 0.05, 0.035], np.float32)
+    ids = method == "tets" and max_tris > 600
     ref = marching_tets(jnp.asarray(vol), 0.0, jnp.asarray(bmin),
                         jnp.asarray(voxel), max_tris=max_tris,
-                        max_active=max_active, gradient_normals=True)
+                        max_active=max_active, gradient_normals=True,
+                        method=method, with_edge_ids=ids)
     got = tmt(_t(vol), 0.0, _t(bmin), _t(voxel), max_tris=max_tris,
-              max_active=max_active, gradient_normals=True)
+              max_active=max_active, gradient_normals=True, method=method,
+              with_edge_ids=ids)
+    if ids:
+        np.testing.assert_array_equal(got.edge_ids.numpy(),
+                                      np.asarray(ref.edge_ids))
     assert int(got.num_tris) == int(ref.num_tris) > 100
     assert bool(got.overflow) == bool(ref.overflow)
     np.testing.assert_allclose(got.vertices.numpy(),
                                np.asarray(ref.vertices), atol=1e-6)
     np.testing.assert_allclose(got.normals.numpy(), np.asarray(ref.normals),
                                atol=1e-5)
+
+
+def test_se3_helpers():
+    """inverse_3x3 (a singular matrix included), affine_inverse,
+    transform_points and transform_dirs against JAX's, with broadcast
+    batch dimensions."""
+    from avatarcap_tpu.ops import se3
+    from avatarcap_tpu_torch.ops import se3 as tse3
+    rs = np.random.RandomState(8)
+    m3 = rs.standard_normal((5, 4, 3, 3)).astype(np.float32)
+    m3[0, 0] = [[1, 2, 3], [2, 4, 6], [0, 1, 1]]              # singular
+    np.testing.assert_allclose(tse3.inverse_3x3(_t(m3)).numpy(),
+                               np.asarray(se3.inverse_3x3(jnp.asarray(m3))),
+                               rtol=1e-5, atol=1e-5)
+    mats = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
+    mats[:, :3, :] = rs.standard_normal((6, 3, 4))
+    inv = tse3.affine_inverse(_t(mats))
+    np.testing.assert_allclose(inv.numpy(),
+                               np.asarray(se3.affine_inverse(
+                                   jnp.asarray(mats))), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose((inv @ _t(mats)).numpy(),
+                               np.broadcast_to(np.eye(4), mats.shape),
+                               atol=1e-4)
+    pts = rs.standard_normal((7, 6, 3)).astype(np.float32)
+    for name in ("transform_points", "transform_dirs"):
+        got = getattr(tse3, name)(_t(mats), _t(pts))
+        ref = getattr(se3, name)(jnp.asarray(mats), jnp.asarray(pts))
+        assert got.shape == (7, 6, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_raster_soup_helpers():
+    """transform_to_clip, soup_to_tris and indexed_to_soup against
+    JAX's."""
+    from avatarcap_tpu.render import raster
+    from avatarcap_tpu_torch.render import raster as traster
+    rs = np.random.RandomState(12)
+    verts = rs.standard_normal((40, 3)).astype(np.float32)
+    mvp = rs.standard_normal((4, 4)).astype(np.float32)
+    np.testing.assert_allclose(
+        traster.transform_to_clip(_t(verts), _t(mvp)).numpy(),
+        np.asarray(raster.transform_to_clip(jnp.asarray(verts),
+                                            jnp.asarray(mvp))), atol=1e-5)
+    soup = rs.standard_normal((3 * 9, 3)).astype(np.float32)
+    tris, valid = traster.soup_to_tris(_t(soup), torch.tensor(5), 9)
+    rtris, rvalid = raster.soup_to_tris(jnp.asarray(soup), jnp.asarray(5), 9)
+    np.testing.assert_array_equal(tris.numpy(), np.asarray(rtris))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(rvalid))
+    faces = rs.randint(0, 40, (25, 3)).astype(np.int32)
+    np.testing.assert_array_equal(
+        traster.indexed_to_soup(_t(verts), _t(faces)).numpy(),
+        np.asarray(raster.indexed_to_soup(jnp.asarray(verts),
+                                          jnp.asarray(faces))))
 
 
 @pytest.fixture(scope="module")
@@ -139,6 +205,25 @@ def test_knn_lbs_and_skin_weight_volume(body):
     assert vol_got.shape == vol_ref.shape
     np.testing.assert_allclose(vol_got.numpy(), np.asarray(vol_ref),
                                atol=1e-5)
+
+
+def test_skin_normals(body):
+    """skin_normals (the blended mats' linear part, no renormalising)
+    against JAX's, unbatched and with a batch of two poses."""
+    from avatarcap_tpu.body.skinning import skin_normals
+    from avatarcap_tpu_torch.body.skinning import skin_normals as tskin
+    v, w, _, mats = body
+    nrm = np.random.RandomState(3).standard_normal(v.shape).astype(
+        np.float32)
+    ref = skin_normals(jnp.asarray(nrm), jnp.asarray(w), jnp.asarray(mats))
+    got = tskin(_t(nrm), _t(w), _t(mats))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    mats2 = np.stack([mats, mats[::-1]])
+    ref2 = skin_normals(jnp.asarray(np.stack([nrm, nrm])),
+                        jnp.asarray(np.stack([w, w])), jnp.asarray(mats2))
+    got2 = tskin(_t(np.stack([nrm, nrm])), _t(np.stack([w, w])),
+                 _t(mats2))
+    np.testing.assert_allclose(got2.numpy(), np.asarray(ref2), atol=1e-5)
 
 
 @pytest.mark.parametrize("row_group", [1, 3])

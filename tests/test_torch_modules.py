@@ -3,7 +3,8 @@ inputs and the same weights (JAX init -> numpy -> the weight bridge).
 
 Both sides run in float32 on the CPU (conftest pins JAX matmuls to
 "highest"), so tolerances are float32 rounding-order ones: ~1e-5 for the
-point networks, 1e-4 for the 14-conv U-Net.
+point networks, 1e-4 for the 14-conv U-Net and the 5- and 6-downsample
+ones.
 """
 
 import numpy as np
@@ -177,6 +178,41 @@ def test_unet_and_pose_features(env):
         got = t_compute(port, _t(pos_map)).numpy()
     assert got.shape == (1, 128, 128, 64)
     np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind,up_mode", [("5ds", "upconv"),
+                                           ("5ds", "upsample"),
+                                           ("6ds", "upconv")])
+def test_unets_5ds_6ds(kind, up_mode):
+    """UnetNoCond5DS / 6DS at nf=8 on a 64^2 map against JAX's (eval mode,
+    numpy-drawn BatchNorm statistics), the weights through
+    unet_state_dict_from_jax, the reference's key names."""
+    from avatarcap_tpu.models import unets
+    from avatarcap_tpu_torch.models import unets as tunets
+    from avatarcap_tpu_torch.weights import unet_state_dict_from_jax
+    name = {"5ds": "UnetNoCond5DS", "6ds": "UnetNoCond6DS"}[kind]
+    rs = np.random.RandomState(len(kind + up_mode))
+    x = rs.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    module = getattr(unets, name)(output_nc=5, nf=8, up_mode=up_mode)
+    variables = _np_tree(jax.jit(module.init)(jax.random.PRNGKey(4),
+                                              jnp.asarray(x)))
+    for block in variables["batch_stats"].values():
+        bn = block["bn"]
+        bn["mean"] = rs.uniform(-0.2, 0.2, bn["mean"].shape).astype(
+            np.float32)
+        bn["var"] = rs.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
+    port = getattr(tunets, name)(3, 5, nf=8, up_mode=up_mode)
+    sd = unet_state_dict_from_jax(variables)
+    port.load_state_dict(sd)
+    port.eval()
+    last = "upconv5" if kind == "5ds" else "upconvC6"
+    assert (f"{last}.up.weight" if kind == "5ds" and up_mode == "upconv"
+            else f"{last}.up.1.weight") in sd
+    ref = np.asarray(module.apply(variables, jnp.asarray(x), False))
+    with torch.no_grad():
+        got = port(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == ref.shape == (2, 64, 64, 5)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
 
 
 def test_query_occupancy(env):

@@ -146,10 +146,46 @@ def test_hgfilter_and_decode_points(env):
     np.testing.assert_allclose(got_d, ref_d, atol=1e-5)
 
 
-def test_hgfilter_rejects_other_down_types():
+@pytest.mark.parametrize("kw", [dict(down_type="ave_pool"),
+                                dict(n_stack=2),
+                                dict(use_sigmoid=True)],
+                         ids=["ave_pool", "n_stack_2", "use_sigmoid"])
+def test_hgfilter_rejects_other_down_types(kw):
+    """The HGFilter forms ReconNet does not use (2x average pooling after
+    conv2, a second stack fed through bl0 / al0, a tanh output) at depth 2
+    on a 64^2 image against JAX's, the weights through
+    hgfilter_state_dict_from_jax; a down type neither package has is
+    refused."""
+    from avatarcap_tpu.models.hourglass import HGFilter as JHG
     from avatarcap_tpu_torch.models.hourglass import HGFilter
-    with pytest.raises(NotImplementedError, match="no_down"):
-        HGFilter(down_type="ave_pool")
+    from avatarcap_tpu_torch.weights import hgfilter_state_dict_from_jax
+    with pytest.raises(ValueError, match="down_type"):
+        HGFilter(down_type="conv64")
+    rs = np.random.RandomState(len(str(kw)))
+    img = rs.standard_normal((1, 64, 64, 6)).astype(np.float32)
+    module = JHG(depth=2, last_ch=16, **kw)
+    variables = jax.tree.map(
+        lambda a: np.asarray(a, np.float32),
+        jax.jit(module.init)(jax.random.PRNGKey(2), jnp.asarray(img)))
+    port = HGFilter(depth=2, in_ch=6, last_ch=16, **kw)
+    sd = hgfilter_state_dict_from_jax(variables, depth=2,
+                                      n_stack=kw.get("n_stack", 1))
+    port.load_state_dict(sd)
+    assert ("bl0.weight" in sd and "al0.bias" in sd) == ("n_stack" in kw)
+    ref_out, ref_normx = module.apply(variables, jnp.asarray(img))
+    with torch.no_grad():
+        got_out, got_normx = port(_t(img).permute(0, 3, 1, 2))
+    side = 16 if "down_type" in kw else 32
+    assert len(got_out) == len(ref_out) == kw.get("n_stack", 1)
+    assert got_normx.shape == (1, 128, side, side)
+    np.testing.assert_allclose(got_normx.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(ref_normx), atol=1e-4, rtol=1e-4)
+    for g, r in zip(got_out, ref_out):
+        g = g.permute(0, 2, 3, 1).numpy()
+        assert g.shape == (1, side, side, 16)
+        if kw.get("use_sigmoid"):
+            assert np.abs(g).max() <= 1.0
+        np.testing.assert_allclose(g, np.asarray(r), atol=1e-4, rtol=1e-4)
 
 
 def test_recon_packer_matches_jax(env):

@@ -319,10 +319,42 @@ def test_render_rays_posed(env):
                                    rtol=1e-4, atol=2e-5, err_msg=k)
 
 
-def test_occupancy_form_raises():
+def test_occupancy_form_raises(env):
+    """The occupancy form (a sigmoid geometry head, trained with BCE
+    against inside labels): one train step of GeoTexAvatar(if_type=
+    "occupancy") on the module fixture's weights against JAX's
+    make_train_step with if_type="occupancy" (perturb on, JAX's draws):
+    the five losses, the BatchNorm statistics and the parameters, by the
+    first step's share rule. An if_type neither package has is
+    refused."""
+    from avatarcap_tpu.models.avatar import GeoTexAvatar as JGeoTex
+    from avatarcap_tpu.train.trainer import AvatarTrainer as JTrainer
     from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
-    with pytest.raises(NotImplementedError, match="SDF"):
-        GeoTexAvatar(if_type="occupancy")
+    from avatarcap_tpu_torch.train.trainer import AvatarTrainer
+    from avatarcap_tpu_torch.weights import avatar_state_dict_from_jax
+    with pytest.raises(ValueError, match="if_type"):
+        GeoTexAvatar(if_type="udf")
+    lrs = np.asarray((1e-3, 1e-4), np.float32)
+    jtrainer = JTrainer(module=JGeoTex(if_type="occupancy"),
+                        statics=env["js"], net_ckpt_dir="unused",
+                        if_type="occupancy", n_samples=N_SAMPLES)
+    jstate = jtrainer.init_state(jax.tree.map(jnp.asarray,
+                                              env["variables"]))
+    model = GeoTexAvatar(if_type="occupancy")
+    model.load_state_dict(avatar_state_dict_from_jax(env["variables"]))
+    trainer = AvatarTrainer(statics=env["tstatics"], net_ckpt_dir="unused",
+                            if_type="occupancy", n_samples=N_SAMPLES,
+                            device="cpu")
+    state = trainer.init_state(model)
+    key, t_rand = _t_rand(300)
+    jstate, jm = jtrainer.train_step(jstate, _jbatch(env["batch"]),
+                                     jnp.asarray(lrs), key)
+    state, m = trainer.train_step(state, _tbatch(env["batch"]), lrs,
+                                  t_rand=torch.from_numpy(t_rand))
+    for k, v in jm.items():
+        np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-5,
+                                   err_msg=k)
+    _check_state(state, jstate, lrs, STEP_TOL[0])
 
 
 def test_geometry_losses():
