@@ -113,7 +113,9 @@ def sample_weight_volume(weight_volume: torch.Tensor,
     volume's X axis."""
     B, N, _ = pts01.shape
     vol = weight_volume.permute(3, 0, 1, 2)[None]          # (1, J, X, Y, Z)
-    grid = (2.0 * pts01 - 1.0)[..., [2, 1, 0]].reshape(1, 1, 1, B * N, 3)
+    # [z, y, x] by a flip: an index list would be copied to the card
+    # and waited for
+    grid = (2.0 * pts01 - 1.0).flip(-1).reshape(1, 1, 1, B * N, 3)
     w = grid_sample_3d(vol, grid)                          # (1, J, 1, 1, BN)
     return w[0, :, 0, 0].reshape(-1, B, N).permute(1, 2, 0)
 

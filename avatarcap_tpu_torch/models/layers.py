@@ -12,7 +12,9 @@ here:
   ``torch.nn.utils.weight_norm`` (dim 0), with the reference's parameter
   names ``weight_g`` (O, 1, 1) and ``weight_v`` (O, I, 1);
 - ``BatchNorm1d`` and ``BatchNorm2d``: the stock modules with the
-  running variance of the JAX package's flax BatchNorm in training mode;
+  running variance of the JAX package's flax BatchNorm in training mode,
+  and with the whole mesh's batch statistics inside a replica of
+  ``parallel.mesh.ReplicaWorkers`` (a train step over a mesh);
 - ``group_norm`` and ``upsample_bicubic_x2``: GroupNorm(32, C) and the
   x2 bicubic ``align_corners=True`` upsample of the hourglass;
 - ``f32_convolutions``: cuDNN convolutions in full float32, with
@@ -26,6 +28,8 @@ import contextlib
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from avatarcap_tpu_torch.parallel.mesh import replica_group
 
 
 class PointConv1d(nn.Conv1d):
@@ -70,12 +74,24 @@ class _FlaxRunningStats:
     where torch stores the unbiased one (n / (n - 1) larger: 16/15 in the
     U-Net's 2 x 2 blocks at batch 4). The output is normalised with the
     biased batch variance, as both do. Eval mode, the state-dict keys and
-    ``num_batches_tracked`` are torch's."""
+    ``num_batches_tracked`` are torch's.
+
+    Inside a replica of a mesh (``parallel.mesh.replica_group``) the batch
+    statistics are the whole mesh's: the mean from every replica's sums
+    and element counts, then the biased variance from every replica's sum
+    of squared deviations from that mean, each reduced in device order.
+    One backward over the mesh's loss runs back through the reductions,
+    so the gradients are those of one BatchNorm over the whole batch. The
+    running statistics update once per call from the mesh's statistics,
+    the same bits on every replica."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        current = replica_group()
+        if current is not None:
+            return self._mesh_forward(x, *current)
         dims = [0] + list(range(2, x.dim()))
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=dims, unbiased=False)
@@ -85,6 +101,27 @@ class _FlaxRunningStats:
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _mesh_forward(self, x: torch.Tensor, group, rank: int
+                      ) -> torch.Tensor:
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        s, counts = group.all_reduce(rank, x.sum(dims),
+                                     x.numel() // x.shape[1])
+        n = sum(counts)
+        mean = s / n
+        d = x - mean.reshape(shape)
+        q, _ = group.all_reduce(rank, (d * d).sum(dims))
+        var = q / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        y = d * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.affine:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y
 
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):

@@ -36,8 +36,10 @@ def rigid_inverse(mats: torch.Tensor) -> torch.Tensor:
     [R^T -R^T t; 0 1], without a general solve."""
     Rt = mats[..., :3, :3].transpose(-1, -2)
     top = torch.cat([Rt, -(Rt @ mats[..., :3, 3:])], dim=-1)   # (..., 3, 4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=mats.dtype,
-                          device=mats.device).expand(top[..., :1, :].shape)
+    # a fill, where a tensor made from a host list would copy it to the
+    # card and wait (the train step calls this once per batch item)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

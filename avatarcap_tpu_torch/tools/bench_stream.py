@@ -138,6 +138,19 @@ def device_events(prof, kernels_only: bool = False):
     return out
 
 
+def union_ns(spans) -> int:
+    """The length of the union of (start, end) intervals."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
 def busy_share(run, device) -> dict:
     """Run ``run()`` under torch.profiler (card activity only) and return
     the union of the kernels' intervals over the span from the first
@@ -156,14 +169,7 @@ def busy_share(run, device) -> dict:
     if not spans:
         return {"busy_share": None, "kernels": 0, "profiled_s": seconds}
     spans.sort()
-    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = union_ns(spans)
     span = spans[-1][1] - spans[0][0]
     return {"busy_share": busy / span, "kernels": len(spans),
             "busy_s": busy * 1e-9, "span_s": span * 1e-9,

@@ -29,7 +29,32 @@ vertices) driven through the port's training entry points, and checked.
 Prints ``[train] {...}`` (one JSON line) and returns the record; raises
 AssertionError on a failed check and without a CUDA device.
 
+``--mesh`` (``run_mesh``, chip_smoke.py's ``[train_mesh]``) runs the
+data-parallel step instead: the one-device step timed beside it, then
+the full-width step over two replicas on the first card and, where more
+cards are visible, over the most cards that the batch of 4 divides
+among (one item a card on four), each from the state and generator of a
+one-device step:
+
+- the five losses of one step against the one-device step's (rtol
+  MESH_LOSS_RTOL), and the parameters by tests/test_torch_train.py's
+  rule (every element within 2 lr + 1e-6, MESH_STEP_SHARE of each group
+  within MESH_STEP_TOL);
+- the replicas' parameters, BatchNorm statistics and Adam moments
+  bit-equal after 3 steps;
+- the median and min ms of ``--steps`` steps, each between
+  synchronisations of every card; points per second; peak memory per
+  card; each card's busy share over one profiled step (the union of its
+  kernels' intervals over the span of the step's kernels on all cards);
+- the epoch-0 policy over the mesh: lrs [1e-3, 0] leaves every warp
+  field parameter's bits on every replica;
+- one finetune step over the mesh: the warp field's bits kept, the
+  template moved, the replicas bit-equal.
+
+Prints ``[train_mesh] {...}``.
+
 Usage: python -m avatarcap_tpu_torch.tools.bench_train [--steps 10]
+       [--mesh]
 """
 
 from __future__ import annotations
@@ -71,6 +96,14 @@ CPU_GRAD_RTOL = 1e-2
 CPU_GRAD_RTOL_MAX = 2e-2
 CPU_PARAM_SHARE = 0.999
 CPU_OWN_STEP_SHARE = 0.97
+# The mesh step against the one-device step: the same float32 formulas
+# in another summation order (the BatchNorm statistics from the mesh's
+# sums, the losses and gradients summed over replicas), and the card's
+# atomics in the backward on both: the CPU tests' rules
+# (tests/test_torch_train_mesh.py, tests/test_torch_train.py)
+MESH_LOSS_RTOL = 1e-4
+MESH_STEP_TOL = 1e-5
+MESH_STEP_SHARE = 0.995
 SMALL = dict(batch_size=2, n_rays=32, n_samples=8, n_surf=256, n_vol=64,
              pos_map_res=128, dense=False)
 LRS = (1e-3, 1e-4)
@@ -363,6 +396,216 @@ def repeatability(env, device) -> dict:
             "tensors_differing": sum(d > 0 for d in diffs.values())}
 
 
+def _sync_all(mesh):
+    for dev in set(mesh):
+        _sync(dev)
+
+
+def _replicas_differ(state) -> list:
+    """The parameters, statistics and Adam moments in which a replica's
+    bits differ from the first device's."""
+    def tensors(model, opt):
+        out = {k: v.cpu() for k, v in model.state_dict().items()}
+        out.update({f"adam.{g}.{k}": getattr(opt[g], k).cpu()
+                    for g in opt for k in ("mu", "nu")})
+        return out
+    ref = tensors(state.model, state.opt)
+    return sorted({k for model, opt in state.replicas
+                   for k, v in tensors(model, opt).items()
+                   if not torch.equal(v, ref[k])})
+
+
+def card_busy_shares(run, mesh) -> dict:
+    """Run ``run()`` under torch.profiler (card activity only): each
+    card's busy share, the union of its kernels' intervals over the span
+    from the first kernel's start to the last one's end on any card."""
+    from torch.profiler import ProfilerActivity, profile
+    from avatarcap_tpu_torch.tools.bench_stream import union_ns
+    cards = sorted({d.index for d in mesh})
+    _sync_all(mesh)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        _sync_all(mesh)
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.name().startswith(("Memcpy", "Memset"))):
+            spans.setdefault(e.device_index(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    if not spans:
+        return {f"cuda:{c}": None for c in cards}
+    every = [x for v in spans.values() for x in v]
+    span = max(e for _, e in every) - min(s for s, _ in every)
+    return {f"cuda:{c}": (union_ns(spans[c]) / span if c in spans else 0.0)
+            for c in cards} | {"span_ms": span * 1e-6,
+                               "kernels": len(every)}
+
+
+def _step_rule(a: dict, b: dict, names) -> dict:
+    """Per group: the largest parameter difference against its bound
+    2 lr + 1e-6 and the share within MESH_STEP_TOL."""
+    out = {}
+    for gi, group in enumerate(("cano_template", "warping_field")):
+        d = torch.cat([(a[n] - b[n].to(a[n].device)).abs().reshape(-1)
+                       for n in names if n.startswith(group + ".")])
+        out[group] = {"max_abs": float(d.max()),
+                      "bound": 2 * LRS[gi] + 1e-6,
+                      "share_tol": float((d <= MESH_STEP_TOL).double()
+                                         .mean())}
+    return out
+
+
+def mesh_steps(env, mesh, n_steps: int = 10) -> dict:
+    """The full-width step over ``mesh`` (whose first device is the
+    env's) and its checks; see the module docstring."""
+    from avatarcap_tpu_torch.train.finetune import (finetune_state,
+                                                    make_finetune_step)
+    from avatarcap_tpu_torch.train.trainer import AvatarTrainer
+    one_trainer, batch = env["trainer"], env["batch"]
+    trainer = AvatarTrainer(statics=env["statics"], net_ckpt_dir="unused",
+                            n_samples=one_trainer.n_samples, mesh=mesh)
+    rec = {"devices": [str(d) for d in mesh]}
+    cards = sorted({d for d in mesh if d.type == "cuda"}, key=str)
+
+    one, m1 = one_trainer.train_step(
+        one_trainer.init_state(env["model"]), batch, LRS,
+        generator=torch.Generator(device=mesh[0]).manual_seed(6))
+    one_params = {n: p.detach() for n, p in one.model.named_parameters()}
+    # (its U-Net forward in training mode moves the BatchNorm statistics:
+    # on the one-device state, which is thrown away)
+    macs = step_macs(one.model, batch, trainer.n_samples)
+    del one
+    for d in cards:     # the peaks of the mesh's steps, not the reference's
+        torch.cuda.reset_peak_memory_stats(d)
+    state = trainer.init_state(env["model"])
+    gen = torch.Generator(device=mesh[0]).manual_seed(6)
+    state, m = trainer.train_step(state, batch, LRS, generator=gen)
+    ref = {k: float(v) for k, v in m1.items()}
+    got = {k: float(v) for k, v in m.items()}
+    rec["losses"], rec["losses_one_device"] = got, ref
+    rec["loss_rel_err"] = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+                              for k in ref)
+    rec["params"] = _step_rule(one_params, state.model.state_dict(),
+                               list(one_params))
+    for _ in range(2):
+        state, m = trainer.train_step(state, batch, LRS, generator=gen)
+    rec["replicas_differ_after_3"] = _replicas_differ(state)
+
+    ms = []
+    for _ in range(n_steps):
+        _sync_all(mesh)
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch, LRS, generator=gen)
+        _sync_all(mesh)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rec.update({"step_ms": ms, "median_ms": statistics.median(ms),
+                "min_ms": min(ms), "points": macs["points"],
+                "points_per_s": macs["points"]
+                / (statistics.median(ms) * 1e-3),
+                "losses_last": {k: float(v) for k, v in m.items()}})
+    rec["peak_mem_gb"] = {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                          for d in cards}
+    if cards:
+        def one_step():
+            nonlocal state
+            state, _ = trainer.train_step(state, batch, LRS, generator=gen)
+        rec["busy_share"] = card_busy_shares(one_step, mesh)
+
+    before = [{n: p.detach().clone() for n, p in model.named_parameters()}
+              for model, _ in [(state.model, None), *state.replicas]]
+    state, _ = trainer.train_step(state, batch, (LRS[0], 0.0),
+                                  generator=gen)
+    changed, still = [], []
+    for b, (model, _) in zip(before, [(state.model, None),
+                                      *state.replicas]):
+        for n, p in model.named_parameters():
+            if n.startswith("warping_field.") and not torch.equal(p, b[n]):
+                changed.append(n)
+            if n.startswith("cano_template.") and torch.equal(p, b[n]):
+                still.append(n)
+    rec["epoch0"] = {"warp_changed": changed[:3],
+                     "template_still": still[:3],
+                     "replicas_differ": _replicas_differ(state)}
+
+    ft = finetune_state(copy.deepcopy(env["model"]).to(mesh[0]), mesh)
+    anchors = [copy.deepcopy(env["model"]).to(d).eval() for d in mesh]
+    tpl_before = {n: p.detach().clone()
+                  for n, p in ft.model.named_parameters()}
+    step = make_finetune_step(env["statics"],
+                              n_samples=trainer.n_samples, mesh=mesh)
+    _sync_all(mesh)
+    t0 = time.perf_counter()
+    ft, fm = step(ft, anchors, batch, generator=gen)
+    _sync_all(mesh)
+    params = dict(ft.model.named_parameters())
+    rec["finetune"] = {
+        "ms": 1e3 * (time.perf_counter() - t0),
+        "losses": {k: float(v) for k, v in fm.items()},
+        "warp_changed": [n for n, p in params.items()
+                         if n.startswith("warping_field.")
+                         and not torch.equal(p, tpl_before[n])][:3],
+        "template_still": [n for n, p in params.items()
+                           if n.startswith("cano_template.")
+                           and torch.equal(p, tpl_before[n])][:3],
+        "replicas_differ": _replicas_differ(ft)}
+
+    bad = [rec["loss_rel_err"] > MESH_LOSS_RTOL,
+           rec["replicas_differ_after_3"], changed, still,
+           rec["epoch0"]["replicas_differ"],
+           not np.all(np.isfinite(list(rec["losses_last"].values())
+                                  + list(rec["finetune"]["losses"]
+                                         .values()))),
+           rec["finetune"]["warp_changed"],
+           rec["finetune"]["template_still"],
+           rec["finetune"]["replicas_differ"]]
+    bad += [g["max_abs"] > g["bound"] or g["share_tol"] < MESH_STEP_SHARE
+            for g in rec["params"].values()]
+    if any(bool(b) for b in bad):
+        raise AssertionError(f"train step over {rec['devices']}: "
+                             f"{json.dumps(rec)}")
+    return rec
+
+
+def mesh_for_cards(batch_size: int):
+    """Every visible card, or the most of them that ``batch_size``
+    divides among (the step splits the batch evenly)."""
+    from avatarcap_tpu_torch.parallel.mesh import make_mesh
+    k = max(k for k in range(1, torch.cuda.device_count() + 1)
+            if batch_size % k == 0)
+    return make_mesh([torch.device("cuda", i) for i in range(k)])
+
+
+def run_mesh(device, n_steps: int = 10, **env_kw) -> dict:
+    """The one-device step timed as full_width_steps does (and its busy
+    share on a card), then mesh_steps over two replicas on ``device``
+    and, where more cards are visible, over mesh_for_cards; ``env_kw``
+    (build_train_env's sizes) shrinks the workload for a rehearsal on
+    the CPU."""
+    from avatarcap_tpu_torch.parallel.mesh import make_mesh
+    from avatarcap_tpu_torch.tools.bench_workloads import build_train_env
+    t0 = time.perf_counter()
+    device = make_mesh([device])[0]
+    env = build_train_env(device=device, net_ckpt_dir=str(CKPT_DIR),
+                          **env_kw)
+    rec = {"build_s": time.perf_counter() - t0}
+    rec["one_device"] = full_width_steps(env, device, n_steps)
+    if device.type == "cuda":
+        def one_step():
+            env["state"], _ = env["trainer"].train_step(
+                env["state"], env["batch"], LRS,
+                generator=torch.Generator(device=device).manual_seed(1))
+        rec["one_device"]["busy_share"] = card_busy_shares(one_step,
+                                                           (device,))
+    rec["two_replicas_one_card"] = mesh_steps(env, make_mesh([device] * 2),
+                                              n_steps)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = mesh_for_cards(env["batch"]["near"].shape[0])
+        if len(mesh) > 1:
+            rec[f"cards_{len(mesh)}"] = mesh_steps(env, mesh, n_steps)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def run(device, n_steps: int = 10, **env_kw) -> dict:
     """Every phase above; ``env_kw`` (build_train_env's sizes) shrinks
     the workload for a rehearsal on the CPU."""
@@ -386,6 +629,8 @@ def run(device, n_steps: int = 10, **env_kw) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--mesh", action="store_true",
+                        help="the data-parallel step over a mesh instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: no CUDA device")
@@ -393,8 +638,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from avatarcap_tpu_torch.tools.bench_kernels import (
         gpu_name_and_power_limit)
-    rec = run(torch.device("cuda"), args.steps)
-    print(f"[train] {json.dumps(rec)}")
+    if args.mesh:
+        rec = run_mesh(torch.device("cuda"), args.steps)
+        print(f"[train_mesh] {json.dumps(rec)}")
+    else:
+        rec = run(torch.device("cuda"), args.steps)
+        print(f"[train] {json.dumps(rec)}")
     print(gpu_name_and_power_limit())
     return 0
 

@@ -6,7 +6,10 @@ warp field's parameters stay fixed; it still runs in training mode, so its
 BatchNorm statistics update, as in the JAX step. The geometry is anchored
 by an L1 loss against the occupancy of a frozen copy of the initial
 network, run in eval mode (its running statistics). Total = image MSE +
-0.5 x anchor L1.
+0.5 x anchor L1. Over a mesh (``make_finetune_step(mesh=)``) the step is
+the whole-batch step, on train/trainer.py's machinery: the trained
+model's BatchNorms take the mesh's statistics, each replica's anchor
+stays in eval mode, and only the template's Adam group moves.
 """
 
 from __future__ import annotations
@@ -23,24 +26,50 @@ import torch
 from avatarcap_tpu_torch.device import resolve_device
 from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
 from avatarcap_tpu_torch.ops.adam import Adam
+from avatarcap_tpu_torch.parallel.mesh import ReplicaWorkers, make_mesh
 from avatarcap_tpu_torch.pipeline.avatar import (
     AvatarStatics, compute_pose_features, query_occupancy)
 from avatarcap_tpu_torch.train import checkpoints as ckpt
 from avatarcap_tpu_torch.train.trainer import (
-    TrainState, apply_updates, batch_to_device, frame_inputs, param_groups,
-    render_train_rays)
+    TrainState, apply_updates, batch_to_device, frame_inputs, mesh_jitter,
+    mesh_apply_gradients, mesh_losses, mesh_replicas, param_groups,
+    render_train_rays, replicate_state, split_batch)
 
 FINETUNE_LR = 5e-4
 
 
-def finetune_state(model: GeoTexAvatar) -> TrainState:
+def finetune_state(model: GeoTexAvatar, mesh=None) -> TrainState:
     """A finetuning state: Adam on ``model``'s template parameters only,
-    step 0 (``model`` itself is trained in place)."""
-    return TrainState(model, {"cano_template": Adam(
+    step 0 (``model`` itself is trained in place); over ``mesh`` (whose
+    first device holds ``model``) replicated to every device of it."""
+    state = TrainState(model, {"cano_template": Adam(
         param_groups(model)["cano_template"])}, 0)
+    return state if mesh is None else replicate_state(state, mesh)
 
 
-def make_finetune_step(statics: AvatarStatics, n_samples: int = 64):
+def _finetune_terms(model, init_model, batch, statics, n_samples,
+                    generator, t_rand):
+    """The finetune step's forward: the squared image errors of the
+    trained model (its BatchNorms in training mode) and the anchor L1 per
+    geometry point against the frozen anchor (eval mode)."""
+    model.train()
+    frame = frame_inputs(batch)
+    feat = compute_pose_features(model, frame.smpl_pos_map, train=True)
+    occ = query_occupancy(model, batch["cano_pts"], feat,
+                          statics)["cano_pts_ov"]
+    rgb_map, _ = render_train_rays(model, batch, feat, frame, statics,
+                                   n_samples, True, generator, t_rand)
+    init_model.eval()
+    with torch.no_grad():
+        feat0 = compute_pose_features(init_model, frame.smpl_pos_map)
+        occ_init = query_occupancy(init_model, batch["cano_pts"], feat0,
+                                   statics)["cano_pts_ov"]
+    return {"tex_loss": torch.square(rgb_map - batch["rgb"]),
+            "geo_loss": (occ - occ_init).abs()}
+
+
+def make_finetune_step(statics: AvatarStatics, n_samples: int = 64,
+                       mesh=None):
     """The finetune step:
 
       step(state, init_model, batch, generator=None, t_rand=None)
@@ -48,25 +77,23 @@ def make_finetune_step(statics: AvatarStatics, n_samples: int = 64):
 
     ``init_model`` is the frozen anchor (kept in eval mode; not changed).
     Samples along the rays are always jittered: by the given (B, R, S)
-    draws ``t_rand``, or drawn from ``generator``."""
+    draws ``t_rand``, or drawn from ``generator``.
+
+    ``mesh``: the whole-batch step over the mesh, as train/trainer.py's
+    (finetune_state(mesh=) replicates the state); ``init_model`` is then
+    one anchor per mesh device, on it. A one-device mesh is the
+    one-device step."""
+    mesh = None if mesh is None else make_mesh(mesh)
+    if mesh is not None and len(mesh) > 1:
+        return _make_mesh_finetune_step(mesh, statics, n_samples)
 
     def step(state: TrainState, init_model: GeoTexAvatar, batch,
              generator=None, t_rand=None):
         model = state.model
-        model.train()
-        frame = frame_inputs(batch)
-        feat = compute_pose_features(model, frame.smpl_pos_map, train=True)
-        occ = query_occupancy(model, batch["cano_pts"], feat,
-                              statics)["cano_pts_ov"]
-        rgb_map, _ = render_train_rays(model, batch, feat, frame, statics,
-                                       n_samples, True, generator, t_rand)
-        init_model.eval()
-        with torch.no_grad():
-            feat0 = compute_pose_features(init_model, frame.smpl_pos_map)
-            occ_init = query_occupancy(init_model, batch["cano_pts"], feat0,
-                                       statics)["cano_pts_ov"]
-        img_loss = torch.square(rgb_map - batch["rgb"]).mean()
-        geo_loss = (occ - occ_init).abs().mean()
+        terms = _finetune_terms(model, init_model, batch, statics,
+                                n_samples, generator, t_rand)
+        img_loss = terms["tex_loss"].mean()
+        geo_loss = terms["geo_loss"].mean()
         total = img_loss + 0.5 * geo_loss
         params = param_groups(model)["cano_template"]
         grads = torch.autograd.grad(total, params)
@@ -76,6 +103,33 @@ def make_finetune_step(statics: AvatarStatics, n_samples: int = 64):
                    "total_loss": total}
         return (state._replace(step=state.step + 1),
                 {k: v.detach() for k, v in metrics.items()})
+
+    return step
+
+
+def _make_mesh_finetune_step(mesh, statics, n_samples):
+    statics_r = [statics.to(d) for d in mesh]
+    workers = ReplicaWorkers(mesh)
+
+    def step(state: TrainState, init_model, batch, generator=None,
+             t_rand=None):
+        replicas = mesh_replicas(state, mesh)
+        anchors = list(init_model)
+        if len(anchors) != len(mesh):
+            raise ValueError(f"{len(anchors)} anchors for a mesh of "
+                             f"{len(mesh)} devices: give one per device")
+        shards = split_batch(mesh, batch)
+        t_rands = mesh_jitter(mesh, batch, n_samples, True, generator,
+                              t_rand)
+        losses = mesh_losses(workers, lambda r: _finetune_terms(
+            replicas[r][0], anchors[r], shards[r], statics_r[r], n_samples,
+            None, t_rands[r]))
+        total = losses["tex_loss"] + 0.5 * losses["geo_loss"]
+        mesh_apply_gradients(mesh, replicas, total,
+                             {"cano_template": FINETUNE_LR})
+        return (state._replace(step=state.step + 1),
+                {k: v.detach() for k, v in
+                 {**losses, "total_loss": total}.items()})
 
     return step
 

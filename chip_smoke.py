@@ -98,7 +98,14 @@ Phases, each fatal on failure:
      a small subject on the card and on the CPU (f32 path and kernels),
      which must agree; the textured frame's colors through the kernels on
      the card also against the f32 path on the CPU;
- 11. the training phase (tools/bench_train.run); [tools]: one short run
+ 11. the training phase (tools/bench_train.run); [train_mesh]
+     (tools/bench_train.run_mesh): the full-width train step over two
+     replicas on the card (and, where more cards are visible, over the
+     cards the batch divides among) against the one-device step from one
+     state and generator (losses rtol 1e-4, parameters by the step rule),
+     the replicas bit-equal after 3 steps, ms, points/s, peak memory and
+     busy share per card, the epoch-0 freeze and one finetune step over
+     the mesh; [tools]: one short run
      of tools/bench_mc (its tets triangulation included: neither it nor
      the 256-case one may overflow) and one of tools/bench_raster;
  12. the command line ([cli]): the port's generate_subject writes a
@@ -1658,6 +1665,9 @@ def main() -> int:
     record["train"] = bench_train.run(device)
     print(f"[train] {json.dumps(record['train'])}")
     mark("train")
+    record["train_mesh"] = bench_train.run_mesh(device)
+    print(f"[train_mesh] {json.dumps(record['train_mesh'])}")
+    mark("train_mesh")
     record["tools"] = tools_phase(device)
     mark("tools")
 

@@ -20,3 +20,18 @@ def test_bench_train_runs_on_cpu():
     assert rec["fit"]["steps"] == 4 and rec["fit"]["round_trip_bit_equal"]
     assert rec["repeatability"]["max_abs_diff"] == 0.0   # no atomics here
     assert not bench_train.CKPT_DIR.exists()
+
+
+def test_bench_train_mesh_runs_on_cpu():
+    """chip_smoke.py's [train_mesh] (tools/bench_train.run_mesh) over two
+    CPU replicas at the small size: its checks hold (it raises
+    otherwise) and it reports the step."""
+    from avatarcap_tpu_torch.tools import bench_train
+    rec = bench_train.run_mesh(torch.device("cpu"), 2, **bench_train.SMALL)
+    two = rec["two_replicas_one_card"]
+    assert two["devices"] == ["cpu", "cpu"] and len(two["step_ms"]) == 2
+    assert two["loss_rel_err"] <= bench_train.MESH_LOSS_RTOL
+    assert two["replicas_differ_after_3"] == []
+    assert two["peak_mem_gb"] == {} and "busy_share" not in two
+    assert set(rec) == {"build_s", "one_device", "two_replicas_one_card",
+                        "seconds"}

@@ -389,6 +389,22 @@ def test_finetune_keeps_warp_on_card(card, train_env):
     assert len(rec["step_ms"]) == 2
 
 
+@pytest.mark.cuda
+def test_mesh_train_step_on_card_matches_one_device(card):
+    """The small train step over two replicas on the card against the
+    one-device step on the card from one state and generator (losses rtol
+    1e-4, parameters by the step rule), the replicas bit-equal after 3
+    steps, the epoch-0 freeze and a finetune step over the mesh
+    (tools/bench_train.mesh_steps raises otherwise)."""
+    from avatarcap_tpu_torch.parallel.mesh import make_mesh
+    from avatarcap_tpu_torch.tools.bench_train import SMALL, mesh_steps
+    from avatarcap_tpu_torch.tools.bench_workloads import build_train_env
+    env = build_train_env(device=card, **SMALL)
+    rec = mesh_steps(env, make_mesh([card] * 2), n_steps=2)
+    assert rec["replicas_differ_after_3"] == []
+    assert rec["busy_share"]["kernels"] > 0
+
+
 @pytest.fixture(scope="module")
 def cli_subject(card, tmp_path_factory):
     """A subject written by the port's writer (on the CPU) on the toy body

@@ -319,7 +319,7 @@ def test_render_rays_posed(env):
                                    rtol=1e-4, atol=2e-5, err_msg=k)
 
 
-def test_occupancy_form_raises(env):
+def test_occupancy_form_train_step(env):
     """The occupancy form (a sigmoid geometry head, trained with BCE
     against inside labels): one train step of GeoTexAvatar(if_type=
     "occupancy") on the module fixture's weights against JAX's
