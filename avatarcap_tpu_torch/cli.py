@@ -149,16 +149,17 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
     ReconNet) ``live_recon/NNNN.jpg`` under ``testing.output_dir``, and the
     PLYs ``NNNN_avatar.ply`` / ``NNNN_recon.ply`` when asked (vertex colors
     with ``w_nerf``). Returns one record per frame: data_idx, the frame's
-    seconds and its synchronised stage seconds (utils.timers.StageTimer),
-    overflow and triangle counts, and the seconds spent saving.
+    seconds (host clock, to a synchronise at the frame's end), its stage
+    seconds and its kernels' row counts (a utils.timers.Tracer, which
+    synchronises nothing: ``timers.frame_summaries``), overflow and
+    triangle counts, and the seconds spent saving.
 
     ``stream`` = N > 0 streams the frames, N per device and batch, one
     batch loaded at a time: on one device through
     ``StreamingCapture.run_pipelined``, on a mesh of several (every card,
-    parallel.mesh.make_mesh) through ``run``. Its records carry no stage
-    times, and a frame's seconds are its batch's (dispatch to the end of
-    the batch on the card) over the batch's frames. The outputs are those
-    of the run without it.
+    parallel.mesh.make_mesh) through ``run``. A frame's seconds are then
+    its batch's (dispatch to the end of the batch on the card) over the
+    batch's frames. The outputs are those of the run without it.
     """
     import cv2 as cv
     from avatarcap_tpu_torch.data.image_io import load_float_image
@@ -168,7 +169,7 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
                                                       CaptureGrid)
     from avatarcap_tpu_torch.render.camera import calc_back_mv, calc_front_mv
     from avatarcap_tpu_torch.train import checkpoints as ckpt
-    from avatarcap_tpu_torch.utils.timers import StageTimer
+    from avatarcap_tpu_torch.utils.timers import Tracer, frame_summaries
     from avatarcap_tpu_torch.weights import load_reference_checkpoint
 
     device = resolve_device(device)
@@ -250,11 +251,11 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
                 _save_mesh(os.path.join(out_dir, f"{data_idx:04d}_recon.ply"),
                            rec, results["recon_colors"] if w_nerf else None)
 
-    def record(item, results, seconds, stages):
+    def record(item, results, seconds, summary):
         t0 = time.perf_counter()
         save_frame(item["data_idx"], results)
         rec = {"data_idx": int(item["data_idx"]), "seconds": seconds,
-               "stages": stages,
+               "stages": summary["stages"], "counts": summary["counts"],
                "save_seconds": time.perf_counter() - t0,
                "overflow": bool(results["overflow"]),
                "num_tris": int(results["cano_mesh"].num_tris)}
@@ -269,6 +270,7 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
     frame_ids = ([frame_idx] if frame_idx is not None
                  else list(range(0, data_num, interval)))
     records = []
+    tracer = Tracer(device)
     if stream > 0:
         from avatarcap_tpu_torch.parallel.mesh import make_mesh
         from avatarcap_tpu_torch.pipeline.streaming import StreamingCapture
@@ -289,25 +291,29 @@ def run_avatarcap(cfg, w_recon=True, w_nerf=False, save_avatar_mesh=False,
             res_list = runner(
                 [p[0] for p in pairs],
                 inferred_normals=([p[1] for p in pairs] if use_recon
-                                  else None))
+                                  else None), timer=tracer)
             for dev in set(mesh):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             seconds = (time.perf_counter() - t0) / len(pairs)
-            records += [record(item, results, seconds, {})
+            frames = frame_summaries(tracer.collect())
+            records += [record(item, results, seconds,
+                               frames[results["frame_id"]])
                         for (item, _), results in zip(pairs, res_list)]
         return records
     for i in frame_ids:
         item, inferred_normal = load_frame(i)
-        timer = StageTimer(device)
-        with timer.stage("frame"):
-            results = capture.process_frame(
-                item, w_recon=use_recon, w_nerf=w_nerf,
-                inferred_normal=inferred_normal,
-                neck_vertex_idx=NECK_VERTEX_IDX, camera=cam,
-                timer=timer)
-        seconds = timer.times.pop("frame")
-        records.append(record(item, results, seconds, dict(timer.times)))
+        t0 = time.perf_counter()
+        results = capture.process_frame(
+            item, w_recon=use_recon, w_nerf=w_nerf,
+            inferred_normal=inferred_normal,
+            neck_vertex_idx=NECK_VERTEX_IDX, camera=cam, timer=tracer)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        frames = frame_summaries(tracer.collect())
+        records.append(record(item, results, seconds,
+                              frames[results["frame_id"]]))
     return records
 
 

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from avatarcap_tpu_torch.ops.embed import positional_encoding
+from avatarcap_tpu_torch.utils.timers import count, span
 
 NUM_FREQS = 10
 POSE_FEAT_DIM = 64
@@ -640,6 +641,8 @@ def warp_template_query(packed_offset: Sequence[torch.Tensor],
 
     CUDA tensors launch the Hopper kernel (counted in
     ``warp_template_query.launches``); CPU tensors run the plain version.
+    Under a tracer (utils/timers), either is a span ``k1`` counting its
+    ``rows``.
 
     Args:
       pts: (N, 3) canonical points; pose_feat: (N, 64) pose features
@@ -647,11 +650,13 @@ def warp_template_query(packed_offset: Sequence[torch.Tensor],
     Returns:
       dict(occ (N, 1), alpha (N, 1), rgb (N, 3), offset (N, 3)), f32.
     """
-    if pts.device.type == "cuda":
-        return _launch(packed_offset, packed_template, pts, pose_feat)
-    if pts.device.type == "cpu":
-        return warp_template_query_plain(packed_offset, packed_template,
-                                         pts, pose_feat)
+    with span("k1"):
+        count("rows", pts.shape[0])
+        if pts.device.type == "cuda":
+            return _launch(packed_offset, packed_template, pts, pose_feat)
+        if pts.device.type == "cpu":
+            return warp_template_query_plain(packed_offset, packed_template,
+                                             pts, pose_feat)
     raise ValueError(f"unsupported device {pts.device}")
 
 
@@ -689,7 +694,8 @@ def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
     """ReconNet pixel-aligned occupancy decode (inference).
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``recon_decode.launches``); CPU tensors run the plain version.
+    ``recon_decode.launches``); CPU tensors run the plain version. Under a
+    tracer, either is a span ``k2`` counting its ``rows``.
 
     Args:
       packed: pack_recon_weights output on the feats' device.
@@ -697,10 +703,12 @@ def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
     Returns:
       (N,) f32 occupancy in [0, 1].
     """
-    if feats.device.type == "cuda":
-        return _recon_launch(packed, feats)
-    if feats.device.type == "cpu":
-        return recon_decode_plain(packed, feats)
+    with span("k2"):
+        count("rows", feats.shape[0])
+        if feats.device.type == "cuda":
+            return _recon_launch(packed, feats)
+        if feats.device.type == "cpu":
+            return recon_decode_plain(packed, feats)
     raise ValueError(f"unsupported device {feats.device}")
 
 
@@ -778,6 +786,7 @@ def ray_color_query(packed_offset: Sequence[torch.Tensor],
 
     CUDA tensors launch the Hopper kernel (counted in
     ``ray_color_query.launches``); CPU tensors run the plain version.
+    Under a tracer, either is a span ``k3`` counting its ``rows`` (rays).
 
     Args:
       ro, rd: (R, 3) ray origins / directions (canonical space).
@@ -792,13 +801,16 @@ def ray_color_query(packed_offset: Sequence[torch.Tensor],
       (R, 3) composited colors, f32.
     """
     _check_rays(ro, rd, pf0, pf1, danch, bounds, n_samples)
-    if ro.device.type == "cuda":
-        return _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1,
-                           danch, bounds, n_samples, near, far, threshold)
-    if ro.device.type == "cpu":
-        return ray_color_query_plain(packed_offset, packed_template, ro, rd,
-                                     pf0, pf1, danch, bounds, n_samples,
-                                     near, far, threshold)
+    with span("k3"):
+        count("rows", ro.shape[0])
+        if ro.device.type == "cuda":
+            return _ray_launch(packed_offset, packed_template, ro, rd, pf0,
+                               pf1, danch, bounds, n_samples, near, far,
+                               threshold)
+        if ro.device.type == "cpu":
+            return ray_color_query_plain(packed_offset, packed_template, ro,
+                                         rd, pf0, pf1, danch, bounds,
+                                         n_samples, near, far, threshold)
     raise ValueError(f"unsupported device {ro.device}")
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from avatarcap_tpu_torch.ops.volume_render import linspace01
+from avatarcap_tpu_torch.utils.timers import span
 
 
 # Entries of the (rows, M) float32 distance tile that callers of knn size
@@ -34,21 +35,23 @@ def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
       queries: (N, 3); database: (M, 3).
     Returns:
       dists (N, k) squared distances, ascending; idx (N, k) int64.
+    Under a tracer (utils/timers) the call is a span ``knn``.
     """
-    db_sq = (database * database).sum(-1)
-    dists, idxs = [], []
-    for s in range(0, queries.shape[0], chunk):
-        q = queries[s:s + chunk]
-        d2 = ((q * q).sum(-1, keepdim=True) - 2.0 * (q @ database.T)
-              + db_sq[None, :])
-        if k == 1:
-            d, i = d2.min(dim=-1, keepdim=True)
-        else:
-            neg, i = torch.topk(-d2, k, dim=-1)
-            d = -neg
-        dists.append(d.clamp_min(0.0))
-        idxs.append(i)
-    return torch.cat(dists), torch.cat(idxs)
+    with span("knn"):
+        db_sq = (database * database).sum(-1)
+        dists, idxs = [], []
+        for s in range(0, queries.shape[0], chunk):
+            q = queries[s:s + chunk]
+            d2 = ((q * q).sum(-1, keepdim=True) - 2.0 * (q @ database.T)
+                  + db_sq[None, :])
+            if k == 1:
+                d, i = d2.min(dim=-1, keepdim=True)
+            else:
+                neg, i = torch.topk(-d2, k, dim=-1)
+                d = -neg
+            dists.append(d.clamp_min(0.0))
+            idxs.append(i)
+        return torch.cat(dists), torch.cat(idxs)
 
 
 def knn_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.ops.compaction import compact_mask_indices
+from avatarcap_tpu_torch.utils.timers import span
 
 # Cube corner offsets, indexed 0..7 (x, y, z).
 _CUBE_CORNERS = np.array([
@@ -275,7 +276,18 @@ def marching_tets(volume: torch.Tensor, iso: float,
     vertex interpolates, (flat index of its lower node << 3) | axis code
     (4 x + 2 y + z of the edge's direction); -1 on slots past num_tris.
     Every slot on the same edge carries the same key.
+
+    Under a tracer (utils/timers) the call is a span ``marching_tets``.
     """
+    with span("marching_tets"):
+        return _marching_tets(volume, iso, bounds_min, voxel_size, max_tris,
+                              max_active, normal_volume, gradient_normals,
+                              with_edge_ids, method)
+
+
+def _marching_tets(volume, iso, bounds_min, voxel_size, max_tris, max_active,
+                   normal_volume, gradient_normals, with_edge_ids,
+                   method) -> Mesh:
     if method not in ("mc256", "tets"):
         raise ValueError(f"method={method!r}: 'mc256' or 'tets'")
     dev = volume.device

@@ -12,7 +12,6 @@ batch statistics and update their running ones, in call order.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,6 +29,7 @@ from avatarcap_tpu_torch.ops.knn import knn, knn_gather
 from avatarcap_tpu_torch.ops.se3 import rigid_inverse
 from avatarcap_tpu_torch.ops.volume_render import (
     raw2outputs, stratified_z_vals, z_vals_to_dists)
+from avatarcap_tpu_torch.utils.timers import NO_SPAN
 
 # 8 cm body proximity gate of every near-body test (the reference's
 # arch_avatar.py:191): the masked query, the anchored ray flags, the
@@ -59,8 +59,9 @@ class FrameInputs(NamedTuple):
 
 
 def stage(timer, name: str):
-    """``timer(name)``, a context manager around one stage, or nothing."""
-    return timer(name) if timer is not None else contextlib.nullcontext()
+    """``timer(name)``, a context manager around one stage, or the shared
+    no-op (utils/timers.NO_SPAN)."""
+    return timer(name) if timer is not None else NO_SPAN
 
 
 def compute_pose_features(model: GeoTexAvatar, smpl_pos_map: torch.Tensor,

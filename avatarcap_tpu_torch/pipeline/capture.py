@@ -65,6 +65,7 @@ from avatarcap_tpu_torch.render.raster import interpolate
 from avatarcap_tpu_torch.render.visualize import (cano_index_passes,
                                                   phong_shade,
                                                   render_live_mesh)
+from avatarcap_tpu_torch.utils.timers import frame_span, live_rows
 
 
 class CaptureGrid(NamedTuple):
@@ -82,6 +83,7 @@ class CaptureGrid(NamedTuple):
     c_fine_idx: torch.Tensor = None  # (Nc_pad,) same nodes' fine indices
     c_prior: torch.Tensor = None     # (Xc*Yc*Zc,) coarse prior
     c_res: tuple = None              # (Xc, Yc, Zc)
+    c_count: int = None              # coarse band nodes (live rows of c_pts)
 
     def to(self, device) -> "CaptureGrid":
         return self._replace(**{
@@ -176,7 +178,7 @@ def build_grid_hierarchy(grid: CaptureGrid, cano_bounds: torch.Tensor,
                              0).to(torch.int32)
     return grid._replace(valid_mask=valid_mask, c_pts=c_pts, c_idx=c_idx,
                          c_fine_idx=c_fine_idx, c_prior=c_prior,
-                         c_res=(Xc, Yc, Zc))
+                         c_res=(Xc, Yc, Zc), c_count=n_c)
 
 
 def _upsample2(c: torch.Tensor, fine_res) -> torch.Tensor:
@@ -215,11 +217,16 @@ def hierarchical_volume(value_fn, grid: CaptureGrid, cano_bounds, c_prior,
     Args:
       value_fn: (pts (N, 3), fine_flat_idx (N,)) -> (N,) field values.
     Returns (vol_flat (X*Y*Z,), query_overflow ()[, n_refined]).
+
+    Under a tracer (utils/timers), the kernel launches of each level count
+    its live points (the coarse band's nodes, the refined nodes up to the
+    capacity) through ``live_rows``.
     """
     g = grid
     X, Y, Z = g.vol_res
     dev = prior.device
-    c_occ = value_fn(g.c_pts, g.c_fine_idx)
+    with live_rows(g.c_count):
+        c_occ = value_fn(g.c_pts, g.c_fine_idx)
     cvol = _scatter_set(c_prior, g.c_idx, c_occ).reshape(g.c_res)
     c_band = g.c_idx < int(np.prod(g.c_res))
     sat = torch.where(c_band, (c_occ - iso).abs(),
@@ -261,7 +268,9 @@ def hierarchical_volume(value_fn, grid: CaptureGrid, cano_bounds, c_prior,
                        dim=-1).to(torch.float32)
     rpts = torch.where(live[:, None], lo + frac * (hi - lo),
                        torch.zeros((), device=dev))
-    r_occ = value_fn(rpts, torch.where(live, ridx, torch.zeros_like(ridx)))
+    with live_rows(n_r):
+        r_occ = value_fn(rpts, torch.where(live, ridx,
+                                           torch.zeros_like(ridx)))
     vol = _upsample2(cvol, (X, Y, Z)).reshape(-1)
     vol = _scatter_set(vol, torch.where(live, ridx,
                                         torch.full_like(ridx, X * Y * Z)),
@@ -366,7 +375,8 @@ def _dedupe_soup(tri_valid: torch.Tensor, edge_ids: torch.Tensor,
       rep (U,) one representative slot per unique vertex (the first of its
         group in sorted order; 0 past the populated ones), uo (3T,) each
         slot's unique index clamped into [0, U), valid_v (3T,) bool,
-        valid_u (U,) bool, overflow () bool (more unique vertices than U).
+        valid_u (U,) bool, overflow () bool (more unique vertices than U),
+        n_u () the populated unique vertices (min(unique, U)).
     """
     imax = torch.iinfo(torch.int32).max
     valid_v = tri_valid.repeat_interleave(3) & (edge_ids >= 0)
@@ -386,9 +396,9 @@ def _dedupe_soup(tri_valid: torch.Tensor, edge_ids: torch.Tensor,
     rep[torch.where(first, seg, torch.full_like(seg, capacity))] = order
     uo = torch.empty_like(order)
     uo[order] = seg.clamp(max=capacity - 1)
-    valid_u = (torch.arange(capacity, device=ids.device)
-               < n_unique.clamp(max=capacity))
-    return rep[:capacity], uo, valid_v, valid_u, overflow
+    n_u = n_unique.clamp(max=capacity)
+    valid_u = torch.arange(capacity, device=ids.device) < n_u
+    return rep[:capacity], uo, valid_v, valid_u, overflow, n_u
 
 
 class _Shard(NamedTuple):
@@ -859,11 +869,13 @@ class AvatarCapture:
 
     def _nerf_ray_colors_fused(self, packed, feat: torch.Tensor,
                                v: torch.Tensor, n: torch.Tensor,
-                               ray_query=ray_color_query) -> torch.Tensor:
+                               ray_query=ray_color_query,
+                               live=None) -> torch.Tensor:
         """The same ray integral through the kernels. With
         nerf_feat_mode="lerp" and near_flag_mode="ray" the whole integral
         is one K3 launch (``ray_query``, K3's wrapper; a caller may wrap it
-        to see the launch's inputs). Otherwise nerf_chunk rays at a time
+        to see the launch's inputs), whose leading ``live`` rays (a count,
+        or None: all) a tracer counts live. Otherwise nerf_chunk rays at a time
         through K1 per sample, with the pose features lerped in bf16
         between the ray's ends ("lerp") or fetched per sample ("exact"),
         the near-body flag from the anchors ("ray"), the distance volume
@@ -891,10 +903,11 @@ class AvatarCapture:
                 danch = anchor_distances(ro, rd, near, far,
                                          st.cano_smpl_vertices,
                                          n_anchors=o.near_flag_anchors)
-                return ray_query(packed["offset"], packed["template"], ro,
-                                 rd, pf0, pf1, danch, st.cano_bounds,
-                                 n_samples=S, near=near, far=far,
-                                 threshold=NEAR_SMPL_DIST)
+                with live_rows(live):
+                    return ray_query(packed["offset"], packed["template"],
+                                     ro, rd, pf0, pf1, danch, st.cano_bounds,
+                                     n_samples=S, near=near, far=far,
+                                     threshold=NEAR_SMPL_DIST)
             w = ((z - near) / (far - near)).to(torch.bfloat16)
         out = []
         for c0 in range(0, U, o.nerf_chunk):
@@ -937,14 +950,15 @@ class AvatarCapture:
                                     q["rgb"].reshape(-1, S, 3)))
         return torch.cat(out)
 
-    def _ray_colors(self, feat, v, n, ray_query=ray_color_query):
+    def _ray_colors(self, feat, v, n, ray_query=ray_color_query, live=None):
         """Colors of the rays at (v, n): the kernels with use_fused_query
-        (the texture avatar's packed weights), else the f32 path."""
+        (the texture avatar's packed weights; ``live``: see
+        _nerf_ray_colors_fused), else the f32 path."""
         if self.opt.use_fused_query:
             packed = (self.packed_tex if self.packed_tex is not None
                       else self.packed_query)
             return self._nerf_ray_colors_fused(packed, feat, v, n,
-                                               ray_query=ray_query)
+                                               ray_query=ray_query, live=live)
         return self._nerf_ray_colors_chunked(feat, v, n)
 
     def nerf_color_stage(self, feat: torch.Tensor, cano_mesh: CaptureMesh,
@@ -964,10 +978,10 @@ class AvatarCapture:
         if not U or cano_mesh.edge_ids is None:
             return (self._nerf_ray_colors_chunked(feat, v, n),
                     torch.zeros((), dtype=torch.bool, device=v.device), None)
-        rep, uo, valid_v, valid_u, overflow = _dedupe_soup(
+        rep, uo, valid_v, valid_u, overflow, n_u = _dedupe_soup(
             cano_mesh.valid, cano_mesh.edge_ids, U)
         v_u = v[rep]
-        rgb_u = self._ray_colors(feat, v_u, n[rep], ray_query)
+        rgb_u = self._ray_colors(feat, v_u, n[rep], ray_query, live=n_u)
         rgb = torch.where(valid_v[:, None], rgb_u[uo],
                           torch.zeros_like(v))
         return rgb, overflow, (v_u, rgb_u, valid_u)
@@ -989,11 +1003,12 @@ class AvatarCapture:
             return (avatar_colors[idx[:, 0]],
                     torch.zeros((), dtype=torch.bool,
                                 device=avatar_verts.device))
-        rep_r, uo_r, valid_r, _, overflow = _dedupe_soup(
+        rep_r, uo_r, valid_r, _, overflow, n_ur = _dedupe_soup(
             recon_mesh.valid, recon_mesh.edge_ids, Ur)
         if o.recon_color_mode == "direct":
             rgb_u = self._ray_colors(feat, recon_mesh.vertices[rep_r],
-                                     recon_mesh.normals[rep_r], ray_query)
+                                     recon_mesh.normals[rep_r], ray_query,
+                                     live=n_ur)
             rgb_r = rgb_u.flip(-1)[uo_r]                  # BGR -> RGB
         else:
             v_u, rgb_u, valid_u = uniq
@@ -1082,12 +1097,15 @@ class AvatarCapture:
           w_nerf: NeRF vertex colors of the avatar soup (and, with
             ``w_recon``, of the ReconNet soup).
           timer: optional callable, ``timer(stage_name)`` -> a context
-            manager wrapped around each stage (for per-stage timing).
+            manager wrapped around each stage (for per-stage timing). A
+            utils/timers.Tracer also gets the frame's root span and the
+            spans of the layers below the stages.
         Returns dict(cano_mesh, live_mesh, cano_phong, front_avatar_normal,
         back_avatar_normal, overflow); with ``w_recon`` also
         front_merged_normal, front_image_normal, recon_mesh and
         live_recon_mesh; with ``w_nerf`` also avatar_colors (RGB per soup
-        slot) and, with ``w_recon``, recon_colors.
+        slot) and, with ``w_recon``, recon_colors; with a Tracer also
+        frame_id, the id of the frame's root span.
         """
         if w_recon and (self.recon is None or inferred_normal is None
                         or neck_vertex_idx is None or camera is None):
@@ -1112,7 +1130,8 @@ class AvatarCapture:
         JAX ``frame_body``), shared by ``process_frame`` and
         pipeline/streaming.py. It reads nothing back to the host, so the
         host may queue the next frame behind it (a ``timer`` that
-        synchronises, such as utils/timers.StageTimer, does).
+        synchronises, such as utils/timers.StageTimer, does; a Tracer does
+        not).
 
         Args:
           frame: FrameInputs on the device; jnt_mats: (J, 4, 4).
@@ -1121,7 +1140,7 @@ class AvatarCapture:
         Returns process_frame's dict.
         """
         o = self.opt
-        with torch.inference_mode():
+        with frame_span(timer) as root, torch.inference_mode():
             with stage(timer, "geometry"):
                 cano_mesh, feat = self.avatar_geometry_stage(
                     frame, want_edge_ids=w_nerf)
@@ -1182,6 +1201,8 @@ class AvatarCapture:
                     results["recon_colors"] = recon_colors
                     overflow = overflow | xfer_ovf
             results["overflow"] = overflow
+        if root is not None:
+            results["frame_id"] = root.id
         return results
 
     def render_live(self, live_mesh: CaptureMesh, front_mv, back_mv,

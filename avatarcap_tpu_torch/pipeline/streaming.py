@@ -100,11 +100,12 @@ class StreamingCapture:
             event.record(stream)
         return tensors, event
 
-    def _dispatch(self, staged, device: torch.device) -> dict:
+    def _dispatch(self, staged, device: torch.device, timer=None) -> dict:
         """Queue one frame's frame_body behind its upload: the device's
         current stream waits on the upload's event, and the uploaded
         buffers are marked in use there, so the caching allocator keeps
-        them until the frame is done with them."""
+        them until the frame is done with them. ``timer``: frame_body's
+        stage hook."""
         (pos_map, lsv, jnt, norm, w2c), event = staged
         rep = self._replicas[device]
         with _on(device):
@@ -119,14 +120,16 @@ class StreamingCapture:
             return rep.frame_body(
                 frame, jnt, norm if self.w_recon else None, w2c,
                 self._camera, self._neck_xy, w_recon=self.w_recon,
-                w_nerf=self.w_nerf)
+                w_nerf=self.w_nerf, timer=timer)
 
     def run_pipelined(self, items: Iterable[dict], inferred_normals=None,
-                      lookahead: int = 2) -> List[dict]:
+                      lookahead: int = 2, timer=None) -> List[dict]:
         """Frames in order on the mesh's first device: frame i's
         frame_body is queued behind its upload, then frame i + lookahead's
         upload is staged while the card works. Nothing is read back
-        between frames. Returns per-frame dicts of device tensors."""
+        between frames. ``timer`` is each frame_body's stage hook (a
+        utils/timers.Tracer gives each frame its root span). Returns
+        per-frame dicts of device tensors."""
         items = list(items)
         norms = self._normals(items, inferred_normals)
         dev = self.mesh[0]
@@ -134,18 +137,19 @@ class StreamingCapture:
                   for i in range(min(lookahead, len(items)))}
         results = []
         for i in range(len(items)):
-            results.append(self._dispatch(staged.pop(i), dev))
+            results.append(self._dispatch(staged.pop(i), dev, timer))
             j = i + lookahead
             if j < len(items):
                 staged[j] = self._upload_frame(items[j], norms[j], dev)
         return results
 
-    def run(self, items: Iterable[dict], inferred_normals=None
+    def run(self, items: Iterable[dict], inferred_normals=None, timer=None
             ) -> List[dict]:
         """Frames in batches of ``batch``, the last padded with its last
         frame; device d takes the batch's d-th contiguous block of
         frames_per_device frames. Every batch's frames are uploaded first,
-        then dispatched round by round over the devices. Returns one dict
+        then dispatched round by round over the devices; ``timer`` is
+        each frame_body's stage hook, the padding's too. Returns one dict
         of tensors (on the device that ran it) per real frame, in order."""
         items = list(items)
         norms = self._normals(items, inferred_normals)
@@ -162,7 +166,7 @@ class StreamingCapture:
             for r in range(k):
                 for d, dev in enumerate(self.mesh):
                     slot = d * k + r
-                    out[slot] = self._dispatch(staged[slot], dev)
+                    out[slot] = self._dispatch(staged[slot], dev, timer)
             results += out[:real]
         return results
 

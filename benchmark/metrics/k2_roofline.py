@@ -1,0 +1,21 @@
+"""K2's least time for the launches of the stretch with the program's own
+spans (work.launch_bound_s on each ``k2`` span's live points: 33 float32
+in and 1 out, 136 bytes a point, and the decoder's weights once) over
+recon_decode_kernel's device time in that stretch (benchmark/spans.py)."""
+
+from benchmark import spans, work
+
+
+def read(run):
+    s = spans.summary(run)
+    if s is None:
+        return None
+    ns = spans.kernel_ns(s, "recon_decode_kernel")
+    lives = [op["live"] for op in s["ops"] if op["name"] == "k2"]
+    if ns is None or not lives:
+        return None
+    w = run.cfg["widths"]
+    wb = work.weight_bytes(work.recon_shapes(w))
+    bound = sum(work.launch_bound_s(n, work.k2_macs_per_point(w), 136, wb)
+                for n in lives)
+    return 100.0 * bound / (ns * 1e-9)
