@@ -9,15 +9,19 @@ avatarcap_tpu/fusion/normal_fusion.py: ``lift_image_normals``,
   image normals there and rotates them back to canonical space.
 - The merge is the reference's two-phase optimisation: 50 Adam steps
   (lr 1e-2) on a 64 x 64 axis-angle rotation grid, then 50 (lr 1e-1) on
-  the normal image, under ``torch.autograd``. The Adam step
-  (ops/adam.py) is optax's order of operations, so the 100-step
-  trajectory stays close to the JAX package's. Then the
-  distance-transform blend and the face box.
+  the normal image. On the card both phases are one launch of
+  csrc/normal_merge.cu, which computes the gradients in closed form; on
+  the CPU they run under ``torch.autograd`` (merge_normal_images_plain).
+  The Adam step (ops/adam.py, and the kernel's copy of it) is optax's
+  order of operations, so the 100-step trajectory stays close to the JAX
+  package's. Then the distance-transform blend and the face box.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import functools
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +33,15 @@ from avatarcap_tpu_torch.ops.morphology import distance_transform_l1, erode_3x3
 from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix
 from avatarcap_tpu_torch.render.raster import rasterize
 from avatarcap_tpu_torch.render.visualize import render_cano_mesh
+from avatarcap_tpu_torch.utils.timers import count, live_rows, span
+
+# the rotation grid's side (csrc/normal_merge.cu: kGrid) and the two
+# phases' learning rates
+MERGE_GRID = 64
+MERGE_LR = (1e-2, 1e-1)
+# the kernel's workspace besides its gradient images: the grid twice
+# (ping-pong), Adam's two moments of it
+MERGE_WORK_FLOATS = 4 * MERGE_GRID * MERGE_GRID * 3
 
 
 def lift_image_normals(live_tris: torch.Tensor, valid_tris: torch.Tensor,
@@ -170,38 +183,50 @@ def _neighbor_shift(img: torch.Tensor, di: int, dj: int) -> torch.Tensor:
     return shift_axis(out, 1, axis_indices(W, dj, H))
 
 
-def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
-                        neck_xy: Sequence[int],
-                        iter_num: int = 100) -> torch.Tensor:
-    """Optimization-based normal fusion.
+def _merge_masks(src_img: torch.Tensor, tar_img: torch.Tensor):
+    """The merge's masks: (the target's distance transform, valid (H, H,
+    1), the valid pixels' count, n_valid = 3 x that count, at least 1)."""
+    src_mask = src_img.norm(dim=-1) > 0.0
+    tar_mask = erode_3x3(tar_img.norm(dim=-1) > 0.0, iterations=3)
+    dt = distance_transform_l1(tar_mask.to(torch.float32))
+    valid = (src_mask & tar_mask)[..., None]
+    n_pixels = valid.sum()
+    return dt, valid, n_pixels, torch.clamp(n_pixels * 3, min=1)
 
-    Phase 1 (iter_num // 2 steps): Adam(lr 1e-2) on a 64 x 64 axis-angle
-    rotation grid that aligns the rotated avatar normals with the image
-    normals, plus neighbour smoothness. Phase 2 (the rest): Adam(lr 1e-1)
-    on the normal image itself. Then distance-transform blending, and the
-    avatar normals kept in a face box below the neck.
+
+def _merge_blend(src: torch.Tensor, src_img: torch.Tensor, dt: torch.Tensor,
+                 neck_xy: Sequence[int]) -> torch.Tensor:
+    """The distance-transform blend of the optimised ``src`` with the
+    avatar normals, then the avatar normals in the face box."""
+    dtw = (dt / 5.0)[..., None]
+    init_w = torch.where(dtw > 1.0, 0.0, 1.0)
+    src = (src * dtw + src_img * init_w) / (dtw + init_w)
+
+    # face box rows [neck_y - 90, neck_y), cols [neck_x - 35,
+    # neck_x + 35): the reference's Python slice is empty when either
+    # start is negative, and a stop past the edge clips
+    x, y = int(neck_xy[0]), int(neck_xy[1])
+    if y - 90 >= 0 and x - 35 >= 0:
+        src[y - 90:y, x - 35:x + 35] = src_img[y - 90:y, x - 35:x + 35]
+    return src
+
+
+def merge_normal_images_plain(src_img: torch.Tensor, tar_img: torch.Tensor,
+                              neck_xy: Sequence[int],
+                              iter_num: int = 100) -> torch.Tensor:
+    """merge_normal_images under ``torch.autograd``: the version CPU
+    tensors run, and the card's kernel is held to.
 
     Runs its own autograd (also when called under ``inference_mode``).
-
-    Args:
-      src_img: (H, H, 3) avatar normals; tar_img: (H, H, 3) canonicalized
-        image normals.
-      neck_xy: (x, y) integer canonical-image neck position.
-    Returns:
-      (H, H, 3) merged normals.
     """
     with torch.inference_mode(False), torch.enable_grad():
         # clones outside inference mode, so autograd may save them
         src_img = src_img.detach().clone()
         tar_img = tar_img.detach().clone()
         H = src_img.shape[0]
-        src_mask = src_img.norm(dim=-1) > 0.0
-        tar_mask = erode_3x3(tar_img.norm(dim=-1) > 0.0, iterations=3)
-        dt = distance_transform_l1(tar_mask.to(torch.float32))
-        valid = (src_mask & tar_mask)[..., None]
-        n_valid = torch.clamp(valid.sum() * 3, min=1)
+        dt, valid, _, n_valid = _merge_masks(src_img, tar_img)
         # the 64 -> H resize matrix, built once (not in every step)
-        wr = device_constant(_resize_matrix(64, H), src_img.device)
+        wr = device_constant(_resize_matrix(MERGE_GRID, H), src_img.device)
 
         def loss_fn(rot_aa, src):
             rot_mat = axis_angle_to_matrix(_resize_bilinear_ac(rot_aa, wr, wr))
@@ -216,33 +241,144 @@ def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
                             _neighbor_shift(rot_aa, di, dj) - rot_aa))
             return data + 1.0 * smooth
 
-        rot_aa = torch.zeros((64, 64, 3), dtype=src_img.dtype,
+        rot_aa = torch.zeros((MERGE_GRID, MERGE_GRID, 3), dtype=src_img.dtype,
                              device=src_img.device)
         opt = Adam([rot_aa])
         for _ in range(iter_num // 2):
             rot_aa.requires_grad_(True)
             g, = torch.autograd.grad(loss_fn(rot_aa, src_img), rot_aa)
-            rot_aa, = opt.step([rot_aa.detach()], [g], 1e-2)
+            rot_aa, = opt.step([rot_aa.detach()], [g], MERGE_LR[0])
 
         src = src_img.detach()          # a new leaf: src_img keeps no grad
         opt = Adam([src])
         for _ in range(iter_num - iter_num // 2):
             src.requires_grad_(True)
             g, = torch.autograd.grad(loss_fn(rot_aa, src), src)
-            src, = opt.step([src.detach()], [g], 1e-1)
+            src, = opt.step([src.detach()], [g], MERGE_LR[1])
+        return _merge_blend(src, src_img, dt, neck_xy)
 
-        # distance-transform blending
-        dtw = (dt / 5.0)[..., None]
-        init_w = torch.where(dtw > 1.0, 0.0, 1.0)
-        src = (src * dtw + src_img * init_w) / (dtw + init_w)
 
-        # face box rows [neck_y - 90, neck_y), cols [neck_x - 35,
-        # neck_x + 35): the reference's Python slice is empty when either
-        # start is negative, and a stop past the edge clips
-        x, y = int(neck_xy[0]), int(neck_xy[1])
-        if y - 90 >= 0 and x - 35 >= 0:
-            src[y - 90:y, x - 35:x + 35] = src_img[y - 90:y, x - 35:x + 35]
-    return src
+def _bias_corrections(b: float, n: int) -> np.ndarray:
+    """1 - b^t for t = 1..n, each as ops/adam.Adam._correction computes
+    it (float32 powers)."""
+    return np.array([np.float32(1) - np.float32(b) ** np.float32(t)
+                     for t in range(1, n + 1)], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def merge_tables(H: int, iter_num: int) -> Dict[str, np.ndarray]:
+    """The host-side tables the merge kernel takes, from
+    ``_resize_matrix(MERGE_GRID, H)`` (M, (H, 64)) and Adam's bias
+    corrections:
+
+    - ``taps_idx`` / ``taps_w`` (H, 2): each fine row's two grid rows and
+      weights (M's nonzero entries; a row with one pads with its own index
+      and weight 0): the upsample's taps, rows and columns alike;
+    - ``adj_off`` (65,), ``adj_idx`` / ``adj_w`` (nnz,): M^T by grid row
+      (CSR, fine rows ascending), the supports the adjoint gathers over;
+    - ``corr1`` / ``corr2`` (ceil(iter_num / 2),): 1 - 0.9^t and
+      1 - 0.999^t for the steps t of either phase.
+
+    Cached per (H, iter_num): callers must not write to the arrays.
+    """
+    m = _resize_matrix(MERGE_GRID, H)
+    taps_idx = np.zeros((H, 2), np.int32)
+    taps_w = np.zeros((H, 2), np.float32)
+    for o in range(H):
+        cols = np.flatnonzero(m[o])
+        taps_idx[o] = cols[0]
+        taps_idx[o, :len(cols)] = cols
+        taps_w[o, :len(cols)] = m[o, cols]
+    mt = m.T
+    nnz = np.count_nonzero(mt, axis=1)
+    adj_idx = np.concatenate([np.flatnonzero(r) for r in mt]).astype(np.int32)
+    n = iter_num - iter_num // 2
+    return {"taps_idx": taps_idx, "taps_w": taps_w,
+            "adj_off": np.concatenate([[0], np.cumsum(nnz)]).astype(np.int32),
+            "adj_idx": adj_idx, "adj_w": mt[mt != 0].astype(np.float32),
+            "corr1": _bias_corrections(0.9, n),
+            "corr2": _bias_corrections(0.999, n)}
+
+
+def _merge_launch(src_img: torch.Tensor, tar_img: torch.Tensor,
+                  neck_xy: Sequence[int], iter_num: int) -> torch.Tensor:
+    from avatarcap_tpu_torch import kernels
+    dev = src_img.device
+    H = src_img.shape[0]
+    if tuple(src_img.shape) != (H, H, 3) or tuple(tar_img.shape) != (H, H, 3):
+        raise ValueError(f"src_img and tar_img must both be (H, H, 3), got "
+                         f"{tuple(src_img.shape)} and {tuple(tar_img.shape)}")
+    if H < 2 or 3 * H * H >= 2 ** 31:
+        raise ValueError(f"image side {H} out of the kernel's range")
+    if src_img.dtype != torch.float32 or tar_img.dtype != torch.float32:
+        raise ValueError(f"float32 images expected, got {src_img.dtype} and "
+                         f"{tar_img.dtype}")
+    if tar_img.device != dev:
+        raise ValueError(f"tar_img on {tar_img.device}, src_img on {dev}")
+    if iter_num < 0:
+        raise ValueError(f"iter_num must be >= 0, got {iter_num}")
+    src_img = src_img.detach().contiguous()
+    tar_img = tar_img.detach().contiguous()
+    dt, valid, n_pixels, n_valid = _merge_masks(src_img, tar_img)
+    tables = {k: device_constant(v, dev)
+              for k, v in merge_tables(H, iter_num).items()}
+    out = torch.empty_like(src_img)
+    work = torch.empty(MERGE_WORK_FLOATS + 3 * H * H + 3 * MERGE_GRID * H,
+                       dtype=torch.float32, device=dev)
+    launch, err_str = kernels.c_functions(
+        "normal_merge", "nm",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
+    with live_rows(n_pixels), span("merge_kernel"):
+        count("rows", H * H)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = launch(
+                src_img.data_ptr(), tar_img.data_ptr(), valid.data_ptr(),
+                n_valid.data_ptr(), H, iter_num // 2,
+                iter_num - iter_num // 2,
+                *(tables[k].data_ptr() for k in (
+                    "taps_idx", "taps_w", "adj_off", "adj_idx", "adj_w",
+                    "corr1", "corr2")),
+                *MERGE_LR, work.data_ptr(), out.data_ptr(), stream)
+    kernels.raise_on(err, err_str, "normal_merge")
+    merge_normal_images.launches += 1
+    return _merge_blend(out, src_img, dt, neck_xy)
+
+
+def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
+                        neck_xy: Sequence[int],
+                        iter_num: int = 100) -> torch.Tensor:
+    """Optimization-based normal fusion.
+
+    Phase 1 (iter_num // 2 steps): Adam(lr 1e-2) on a 64 x 64 axis-angle
+    rotation grid that aligns the rotated avatar normals with the image
+    normals, plus neighbour smoothness. Phase 2 (the rest): Adam(lr 1e-1)
+    on the normal image itself. Then distance-transform blending, and the
+    avatar normals kept in a face box below the neck.
+
+    CUDA tensors run both phases in one launch of
+    ``csrc/normal_merge.cu`` (closed-form gradients; counted in
+    ``merge_normal_images.launches``, and a span ``merge_kernel`` under a
+    tracer, its ``rows`` the H x H pixels, ``live`` the valid ones); CPU
+    tensors run merge_normal_images_plain. The masks, the distance
+    transform and the blend are PyTorch on either.
+
+    Args:
+      src_img: (H, H, 3) avatar normals; tar_img: (H, H, 3) canonicalized
+        image normals.
+      neck_xy: (x, y) integer canonical-image neck position.
+    Returns:
+      (H, H, 3) merged normals.
+    """
+    if src_img.device.type == "cuda":
+        return _merge_launch(src_img, tar_img, neck_xy, iter_num)
+    if src_img.device.type == "cpu":
+        return merge_normal_images_plain(src_img, tar_img, neck_xy, iter_num)
+    raise ValueError(f"unsupported device {src_img.device}")
+
+
+merge_normal_images.launches = 0
 
 
 def merge_normal_images_cover(src_img: torch.Tensor,

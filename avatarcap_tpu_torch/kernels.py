@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("warp_template_query", "recon_decode", "ray_color_query",
-           "template_offset_query")
+           "template_offset_query", "normal_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,3 +109,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def c_functions(name: str, prefix: str, launch_argtypes):
+    """(launch, error_string) C functions of the built library
+    ``csrc/<name>.cu``, with their signatures declared."""
+    lib = load(name)
+    launch = getattr(lib, f"{prefix}_launch")
+    launch.argtypes = launch_argtypes
+    launch.restype = ctypes.c_int
+    err_str = getattr(lib, f"{prefix}_error_string")
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    return launch, err_str
+
+
+def raise_on(err: int, err_str, what: str) -> None:
+    """Raise with the CUDA error's text when a launch returned one."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + err_str(err).decode())

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avatarcap_tpu_torch import kernels
 from avatarcap_tpu_torch.ops.embed import positional_encoding
 from avatarcap_tpu_torch.utils.timers import count, span
 
@@ -578,26 +579,6 @@ def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
                              f"{b.device}")
 
 
-def _kernel_fns(name: str, prefix: str, launch_argtypes):
-    """(launch, error_string) C functions of the built library
-    ``csrc/<name>.cu``, with their signatures declared."""
-    from avatarcap_tpu_torch import kernels
-    lib = kernels.load(name)
-    launch = getattr(lib, f"{prefix}_launch")
-    launch.argtypes = launch_argtypes
-    launch.restype = ctypes.c_int
-    err_str = getattr(lib, f"{prefix}_error_string")
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    return launch, err_str
-
-
-def _raise_on(err: int, err_str, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           + err_str(err).decode())
-
-
 def _launch(packed_offset, packed_template, pts, pose_feat):
     dev = pts.device
     n = pts.shape[0]
@@ -619,7 +600,7 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
     out = {"occ": occ, "alpha": alpha, "rgb": rgb, "offset": off}
     if n == 0:
         return out
-    launch, err_str = _kernel_fns(
+    launch, err_str = kernels.c_functions(
         "warp_template_query", "wtq",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7)
     image, bias = _cached_weight_image(packed_offset, packed_template)
@@ -628,7 +609,7 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
         err = launch(pts.data_ptr(), pf.data_ptr(), n, image.data_ptr(),
                      bias.data_ptr(), occ.data_ptr(), alpha.data_ptr(),
                      rgb.data_ptr(), off.data_ptr(), stream)
-    _raise_on(err, err_str, "warp_template_query")
+    kernels.raise_on(err, err_str, "warp_template_query")
     warp_template_query.launches += 1
     return out
 
@@ -676,7 +657,7 @@ def _recon_launch(packed, feats):
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch, err_str = _kernel_fns(
+    launch, err_str = kernels.c_functions(
         "recon_decode", "recon_decode",
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
     image, bias = _cached_recon_image(packed)
@@ -684,7 +665,7 @@ def _recon_launch(packed, feats):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), stream)
-    _raise_on(err, err_str, "recon_decode")
+    kernels.raise_on(err, err_str, "recon_decode")
     recon_decode.launches += 1
     return out
 
@@ -755,7 +736,7 @@ def _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1, danch,
     f32 = [t.to(torch.float32).contiguous() for t in (ro, rd, danch, bounds)]
     bf = [t.to(torch.bfloat16).contiguous() for t in (pf0, pf1)]
     near32, gap, step = ray_constants(n_samples, danch.shape[1], near, far)
-    launch, err_str = _kernel_fns(
+    launch, err_str = kernels.c_functions(
         "ray_color_query", "rcq",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
         + [ctypes.c_void_p] * 4)
@@ -767,7 +748,7 @@ def _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1, danch,
                      r, n_samples, danch.shape[1], near32, gap, step,
                      _f32(threshold), image.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), stream)
-    _raise_on(err, err_str, "ray_color_query")
+    kernels.raise_on(err, err_str, "ray_color_query")
     ray_color_query.launches += 1
     return out
 
@@ -827,7 +808,7 @@ def _template_launch(packed_template, pts):
     occ = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if n == 0:
         return rgb, alpha, occ
-    launch, err_str = _kernel_fns(
+    launch, err_str = kernels.c_functions(
         "template_offset_query", "tq",
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6)
     image, bias = _cached_weight_image(None, packed_template)
@@ -835,7 +816,7 @@ def _template_launch(packed_template, pts):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(pts.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
                      rgb.data_ptr(), alpha.data_ptr(), occ.data_ptr(), stream)
-    _raise_on(err, err_str, "template_query")
+    kernels.raise_on(err, err_str, "template_query")
     template_query.launches += 1
     return rgb, alpha, occ
 
@@ -875,7 +856,7 @@ def _offset_launch(packed_offset, feats):
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch, err_str = _kernel_fns(
+    launch, err_str = kernels.c_functions(
         "template_offset_query", "oq",
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
     image, bias = _cached_weight_image(packed_offset, None)
@@ -883,7 +864,7 @@ def _offset_launch(packed_offset, feats):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), stream)
-    _raise_on(err, err_str, "offset_query")
+    kernels.raise_on(err, err_str, "offset_query")
     offset_query.launches += 1
     return out
 

@@ -1,10 +1,14 @@
-"""Kernel-only times of the port's five CUDA kernels on one NVIDIA GPU
+"""Kernel-only times of the port's CUDA kernels on one NVIDIA GPU
 (counterpart of avatarcap_tpu/tools/bench_kernels.py).
 
 K1 (warp_template_query), K2 (recon_decode), K3 (ray_color_query), K4
 (template_query) and K5 (offset_query) on seeded random inputs at the
 launch shapes of the full-size capture frame, with random weights at the
-published widths. Per launch: the CUDA-event mean over ``--reps`` launches
+published widths; and the normal-fusion merge (``merge``,
+csrc/normal_merge.cu) at the frame's 512^2 and 100 steps on a seeded
+synthetic pair (``merge_inputs``), its row timing the whole call (masks,
+distance transform, kernel, blend) beside the plain path's on the card,
+with its launches. Per launch: the CUDA-event mean over ``--reps`` launches
 after a warm-up, the achieved TFLOP/s (2 x multiply-adds of the packed
 shapes), the bound (the larger of operations over the bf16 peak and bytes
 over the memory rate) and the bound's share of the measured time; and the
@@ -22,7 +26,7 @@ call, would otherwise set the time of so short a launch): on the card's
 132 SMs, equal times up to 132 tiles (one wave) mean that a tile's time
 is set inside its SM, not by the L2 that all SMs share.
 
-Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,k3]
+Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,merge]
        [--waves]
 """
 
@@ -47,6 +51,9 @@ K2_POINTS = {"coarse": 1155072, "refine": 262144}
 K3_RAYS = {"avatar": 294912, "recon": 131072}
 K3_SAMPLES, K3_ANCHORS = 64, 4
 K45_POINTS = 1155072
+MERGE_SIDE, MERGE_ITERS = 512, 100
+# the merge kernel against its plain version (merge_agreement)
+MERGE_TOL, MERGE_SHARE = 1e-3, 0.99
 
 
 def event_ms(fn, reps: int) -> float:
@@ -126,6 +133,101 @@ def _ray_inputs(n, n_anchors, device, gen):
     bounds = torch.tensor([[-0.7, -0.7, -0.7], [0.7, 0.7, 0.7]])
     return [t.to(device) for t in (base + nrm, -nrm, pf[0], pf[1], danch,
                                    bounds)]
+
+
+def merge_inputs(side: int, seed: int = 0, cover: float = 0.25):
+    """A seeded (src, tar) pair shaped like the capture's merge inputs,
+    (side, side, 3) float32 numpy: the normals of a wrinkled ellipsoid
+    covering the image's middle as the avatar's, and a normal facing the
+    camera, tilted by U(+-0.15) in x and y plus N(0, 0.05) per pixel,
+    normalised, on a central square of ``cover`` x side as the image's
+    (the benchmark's inferred normal map). At 512 and the default cover
+    they overlap on ~16,000 pixels, as the benchmark's frames do (~17,600
+    valid pixels)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side].astype(np.float32)
+    dx = (xx - side / 2) / (0.42 * side)
+    dy = (yy - side / 2) / (0.55 * side)
+    inside = dx ** 2 + dy ** 2 < 1
+    n = np.stack([dx + 0.05 * np.sin(yy * (80.0 / side)), dy,
+                  np.sqrt(np.clip(1 - dx ** 2 - dy ** 2, 0, 1))], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    src = np.where(inside[..., None], n, 0).astype(np.float32)
+    w = int(round(cover * side))
+    lo = (side - w) // 2
+    t = np.zeros((w, w, 3), np.float32)
+    t[..., 2] = 1.0
+    t[..., :2] += rng.uniform(-0.15, 0.15, 2).astype(np.float32)
+    t += 0.05 * rng.standard_normal(t.shape).astype(np.float32)
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    tar = np.zeros((side, side, 3), np.float32)
+    tar[lo:lo + w, lo:lo + w] = t
+    return src, tar
+
+
+def kernel_device_ms(fn, name: str, reps: int):
+    """Mean device ms a call of the kernels whose name holds ``name``,
+    from a torch.profiler trace of ``reps`` calls; None where the trace
+    holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if name in e.key)
+    return us * 1e-3 / reps if us else None
+
+
+def merge_agreement(src, tar, neck, iters: int) -> dict:
+    """The merge's kernel path against merge_normal_images_plain on the
+    same card: per pixel the largest channel difference, its max and the
+    share of pixels within 1e-4, whether the two are equal to the bit (at
+    512^2 on an H100 they are: csrc/normal_merge.cu follows the plain
+    path's rounding), and ``ok``: every pixel within MERGE_TOL and
+    MERGE_SHARE of them within 1e-4."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    got = nf.merge_normal_images(src, tar, neck, iters)
+    ref = nf.merge_normal_images_plain(src, tar, neck, iters)
+    d = (got - ref).abs().amax(-1)
+    rec = {"max_abs_err": float(d.max()),
+           "share_within_1e-4": float((d <= 1e-4).float().mean()),
+           "bitwise": bool(torch.equal(got, ref))}
+    rec["ok"] = bool(torch.isfinite(got).all()) and (
+        rec["share_within_1e-4"] >= MERGE_SHARE
+        and rec["max_abs_err"] <= MERGE_TOL)
+    return rec
+
+
+def merge_row(dev, seed: int, reps: int, side: int = MERGE_SIDE,
+              iters: int = MERGE_ITERS) -> dict:
+    """The merge at the frame's shapes: ms of a call (kernel path: masks,
+    distance transform, the launch, blend) and of the kernel alone, the
+    plain path's ms on the card, the kernel's bound (its inputs and
+    output over the memory rate), launches a call, merge_agreement, a
+    SHA-1 of the output."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    src, tar = (torch.as_tensor(a).to(dev) for a in merge_inputs(side, seed))
+    neck = (side // 2, side // 2 - 40)
+
+    def call():
+        return nf.merge_normal_images(src, tar, neck, iters)
+
+    def plain():
+        return nf.merge_normal_images_plain(src, tar, neck, iters)
+    before = nf.merge_normal_images.launches
+    got = call()
+    launches = nf.merge_normal_images.launches - before
+    # src, tar and the output (f32, 3 channels) and the mask (1 byte)
+    nbytes = side ** 2 * (3 * 4 * 3 + 1)
+    return {"name": "normal_merge", "launch": "merge", "points": side ** 2,
+            "steps": iters, "ms": event_ms(call, reps),
+            "kernel_ms": kernel_device_ms(call, "normal_merge_kernel", reps),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "plain_ms": event_ms(plain, 1), "launches": launches,
+            **merge_agreement(src, tar, neck, iters),
+            "sha1": outputs_sha1([got])}
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -259,12 +361,14 @@ def bench(only, reps: int, check: int, seed: int, waves: bool = False):
                                  err))
                 rows[-1]["sha1"] = outputs_sha1(
                     [fq.ray_color_query(off, tpl, *rays, **kw)])
+        if "merge" in only:
+            rows.append(merge_row(dev, seed, reps))
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k1,k2,k3,k4,k5",
+    ap.add_argument("--only", default="k1,k2,k3,k4,k5,merge",
                     help="comma-separated kernels to run")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--check", type=int, default=65536,
@@ -283,6 +387,17 @@ def main(argv=None) -> int:
                  args.waves)
     smi = gpu_name_and_power_limit()
     for r in rows:
+        if r["name"] == "normal_merge":
+            kern = ("not measured" if r["kernel_ms"] is None
+                    else f"{r['kernel_ms']:.3f} ms")
+            print(f"{r['name']:>20} {r['launch']:>7} {r['points']:>10} px   "
+                  f"{r['ms']:9.3f} ms (kernel {kern}, bound "
+                  f"{r['bound_ms']:.4f} ms)  plain {r['plain_ms']:9.3f} ms  "
+                  f"{r['launches']} launch  err {r['max_abs_err']:.3e} "
+                  f"({100 * r['share_within_1e-4']:.3f}% within 1e-4; "
+                  f"{'equal bits' if r['bitwise'] else 'not bitwise'})  "
+                  f"sha1 {r['sha1'][:12]}")
+            continue
         l2 = (f"  L2 {r['l2_tb_per_s']:.2f} TB/s" if "l2_tb_per_s" in r
               else "")
         print(f"{r['name']:>20} {r['launch']:>7} {r['points']:>10} pts  "

@@ -35,6 +35,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from avatarcap_tpu_torch.fusion.normal_fusion import merge_normal_images
 from avatarcap_tpu_torch.ops import fused_query as fq
 from avatarcap_tpu_torch.tools.bench_kernels import outputs_sha1
 
@@ -46,9 +47,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _wrappers() -> Dict[str, object]:
+    """The kernels' wrappers, K1 to K5 and the normal-fusion merge, each
+    counting its launches."""
     return {"k1": fq.warp_template_query, "k2": fq.recon_decode,
             "k3": fq.ray_color_query, "k4": fq.template_query,
-            "k5": fq.offset_query}
+            "k5": fq.offset_query, "merge": merge_normal_images}
 
 
 def _zero_launches() -> None:

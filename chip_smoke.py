@@ -37,8 +37,10 @@ Phases, each fatal on failure:
      inputs of the two K2 (recon_decode) launches, recorded through the
      same recon_volume the frame runs; K2 held against its plain version
      on them and timed, beside its weight image's bytes and build time and
-     the bytes its tiles pull from L2; then two timed frames with the
-     launch counts read around each (2 K1 and 2 K2 launches), whose
+     the bytes its tiles pull from L2; [merge]: the normal-fusion merge's
+     kernel at the frame's shapes against its plain version on the card,
+     one launch a call, times and bound; then two timed frames with the
+     launch counts read around each (2 K1, 2 K2 and 1 merge launch), whose
      triangle counts are compared (run-to-run drift), two more with
      torch.backends.cudnn.deterministic = True, and the stage times. The
      drift phase runs the frame's avatar stages (pose features, the grid's
@@ -52,14 +54,15 @@ Phases, each fatal on failure:
      the two K3 (ray_color_query) launches (the avatar's unique vertices
      and the ReconNet's, recorded through the same color stages the frame
      runs); K3 held against its plain version on them and timed; then two
-     timed frames with the launch counts read around each (2 K1, 2 K2 and
-     2 K3 launches), the stage times, and one avatar-only textured frame
-     (2 K1, 1 K3);
+     timed frames with the launch counts read around each (2 K1, 2 K2, 2
+     K3 and 1 merge launch), the stage times, and one avatar-only textured
+     frame (2 K1, 1 K3, no merge);
      [occupancy]: the fitted subject's avatar weights in
      GeoTexAvatar(if_type="occupancy") at iso_value 0.5 (sigmoid(x) >= 0.5
      iff x >= 0: the SDF frame's surface), through a warm-up and two timed
      textured production frames (the launch counts set to 0 just before
-     and read just after each: 2 K1, 2 K2, 2 K3), their triangle counts
+     and read just after each: 2 K1, 2 K2, 2 K3, 1 merge), their triangle
+     counts
      beside the SDF frame's, no overflow; then the small subject's three
      frame forms in the occupancy form on the card against the CPU, as
      phase 10 holds the SDF ones;
@@ -416,7 +419,8 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
         out = query_occupancy_fused(pk, q, feat, st)
         _sync(device)
         launches = {k: fn.launches for k, fn in wrappers.items()}
-        if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0}:
+        if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
+                        "merge": 0}:
             raise AssertionError(f"query_occupancy_fused launched {launches}"
                                  ", expected one K1 launch")
         n = pts.shape[0]
@@ -489,10 +493,12 @@ def occupancy_phase(capture, item, recon_kw, sdf_frame, device):
     for _ in range(2):
         _, rec = run_frame(occ, item, device, w_nerf=True, w_recon=True,
                            **recon_kw)
-        got = (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"])
-        if got != (2, 2, 2):
+        got = (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"],
+               rec["merge_launches"])
+        if got != (2, 2, 2, 1):
             raise AssertionError(f"the occupancy textured frame launched K1, "
-                                 f"K2, K3 {got} times, expected 2, 2, 2")
+                                 f"K2, K3, merge {got} times, expected 2, 2, "
+                                 "2, 1")
         if rec["overflow"]:
             raise AssertionError(f"the occupancy textured frame overflows: "
                                  f"{rec}")
@@ -520,11 +526,10 @@ def _finite(tensors):
 
 
 def _wrappers():
-    """The kernels' wrappers, K1 to K5, each counting its launches."""
-    from avatarcap_tpu_torch.ops import fused_query as fq
-    return {"k1": fq.warp_template_query, "k2": fq.recon_decode,
-            "k3": fq.ray_color_query, "k4": fq.template_query,
-            "k5": fq.offset_query}
+    """The kernels' wrappers, K1 to K5 and the normal-fusion merge, each
+    counting its launches."""
+    from avatarcap_tpu_torch.tools.bench_stream import _wrappers as wrappers
+    return wrappers()
 
 
 def run_frame(capture, item, device, w_nerf=False, **frame_kw):
@@ -663,6 +668,31 @@ def production_frames(capture, item, recon_kw, device):
     return check_k2(capture, recorded, device)
 
 
+def merge_phase(capture, device):
+    """[merge]: the normal-fusion merge's kernel (csrc/normal_merge.cu) at
+    the frame's render size and fusion_iters steps, on
+    tools/bench_kernels.merge_inputs' pair (the fitted subject's own front
+    images share no valid pixel: its merge is a no-op): held against
+    merge_normal_images_plain on the card (bench_kernels.merge_agreement;
+    at the capture's 512^2 the two must be equal to the bit), one launch a
+    call, timed beside the plain path (the whole call by CUDA events, the
+    kernel alone from a profiler trace) and its bound."""
+    from avatarcap_tpu_torch.tools import bench_kernels as bk
+    rec = bk.merge_row(device, seed=0, reps=10, side=capture.opt.render_res,
+                       iters=capture.opt.fusion_iters)
+    exact = capture.opt.render_res != 512 or rec["bitwise"]
+    if not rec["ok"] or not exact or rec["launches"] != 1:
+        raise AssertionError(f"the merge kernel disagrees with its plain "
+                             f"version: {rec}")
+    return dict(rec, route="cuda", ms=rec["kernel_ms"], call_ms=rec["ms"],
+                source="avatarcap_tpu_torch/csrc/normal_merge.cu",
+                replaces="none (avatarcap_tpu/fusion/normal_fusion.py:"
+                         "264-282, the jitted fori_loops)",
+                tolerance={"max": bk.MERGE_TOL, "share_within_1e-4":
+                           bk.MERGE_SHARE},
+                library_ms=None)
+
+
 def stage_hashes(capture, item):
     """SHA-1 of the output bits of each avatar stage of the production
     frame, run through the frame's own stage functions on the item, in
@@ -746,11 +776,12 @@ def timed_production_frames(capture, item, recon_kw, device):
         torch.backends.cudnn.deterministic = deterministic
         _, rec = run_frame(capture, item, device, w_recon=True, **recon_kw)
         rec["cudnn_deterministic"] = deterministic
-        if rec["k1_launches"] != 2 or rec["k2_launches"] != 2:
+        got = (rec["k1_launches"], rec["k2_launches"],
+               rec["merge_launches"])
+        if got != (2, 2, 1):
             raise AssertionError(
-                f"the production frame launched K1 {rec['k1_launches']} and "
-                f"K2 {rec['k2_launches']} times, expected 2 and 2 (coarse "
-                "+ refine)")
+                f"the production frame launched K1, K2, merge {got} times, "
+                "expected 2, 2 (coarse + refine) and 1")
         frames.append(rec)
     torch.backends.cudnn.deterministic = False
     hashes.append(stage_hashes(capture, item))
@@ -875,12 +906,12 @@ def textured_frames(capture, item, recon_kw, device):
     for _ in range(2):
         _, rec = run_frame(capture, item, device, w_nerf=True, w_recon=True,
                            **recon_kw)
-        if (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"]) != (
-                2, 2, 2):
+        got = (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"],
+               rec["merge_launches"])
+        if got != (2, 2, 2, 1):
             raise AssertionError(
-                f"the textured production frame launched K1, K2, K3 "
-                f"{rec['k1_launches']}, {rec['k2_launches']}, "
-                f"{rec['k3_launches']} times, expected 2, 2, 2")
+                f"the textured production frame launched K1, K2, K3, merge "
+                f"{got} times, expected 2, 2, 2, 1")
         frames.append(rec)
     out = dict(frames[0])
     out["runs"] = frames
@@ -888,12 +919,12 @@ def textured_frames(capture, item, recon_kw, device):
                                 w_recon=True, **recon_kw)
     _, avatar_only = run_frame(capture, item, device, w_nerf=True,
                                w_recon=False)
-    if (avatar_only["k1_launches"], avatar_only["k2_launches"],
-            avatar_only["k3_launches"]) != (2, 0, 1):
+    got = (avatar_only["k1_launches"], avatar_only["k2_launches"],
+           avatar_only["k3_launches"], avatar_only["merge_launches"])
+    if got != (2, 0, 1, 0):
         raise AssertionError(
-            f"the avatar-only textured frame launched K1, K2, K3 "
-            f"{avatar_only['k1_launches']}, {avatar_only['k2_launches']}, "
-            f"{avatar_only['k3_launches']} times, expected 2, 0, 1")
+            f"the avatar-only textured frame launched K1, K2, K3, merge "
+            f"{got} times, expected 2, 0, 1, 0")
     out["avatar_only"] = avatar_only
     return k3, out
 
@@ -1057,7 +1088,7 @@ def stream_phase(capture, item, recon_kw):
     (lookahead 2), and the busy share of a profiled pipelined run
     (tools/bench_stream.stream_phase). The frames' hashes must agree and
     differ from pose to pose; the pipelined run launches 8 x 2 K1, K2 and
-    K3."""
+    K3 and 8 merges."""
     from avatarcap_tpu_torch.tools.bench_stream import stream_phase as run
     rec = run(capture, item, recon_kw)
     for way in ("loop", "pipelined"):
@@ -1070,7 +1101,7 @@ def stream_phase(capture, item, recon_kw):
           f"{rec['distinct_poses']}; busy share of the card over the "
           f"profiled pipelined run {prof['busy_share']} ({prof['kernels']} "
           f"kernels, {prof['profiled_s']:.2f} s profiled)")
-    want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0}
+    want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0, "merge": 8}
     if rec["pipelined"]["launches"] != want:
         raise AssertionError(f"the pipelined stream launched "
                              f"{rec['pipelined']['launches']}, expected "
@@ -1601,12 +1632,12 @@ def main() -> int:
 
     run_frame(capture, item, device, w_recon=False)           # warm-up
     _, frame = run_frame(capture, item, device, w_recon=False)
-    if (frame["k1_launches"], frame["k2_launches"],
-            frame["k3_launches"]) != (2, 0, 0):
+    got = (frame["k1_launches"], frame["k2_launches"], frame["k3_launches"],
+           frame["merge_launches"])
+    if got != (2, 0, 0, 0):
         raise AssertionError(
-            f"the avatar-only frame launched K1, K2, K3 "
-            f"{frame['k1_launches']}, {frame['k2_launches']}, "
-            f"{frame['k3_launches']} times, expected 2, 0, 0")
+            f"the avatar-only frame launched K1, K2, K3, merge {got} times, "
+            "expected 2, 0, 0, 0")
     frame["stages"] = stage_times(capture, item, device, w_recon=False)
     record["frame"] = frame
     print(f"[frame] {json.dumps(frame)}")
@@ -1614,6 +1645,8 @@ def main() -> int:
 
     k2 = production_frames(capture, item, recon_kw, device)
     print(f"[k2] {json.dumps(k2)}")
+    merge = merge_phase(capture, device)
+    print(f"[merge] {json.dumps(merge)}")
     frame_r = timed_production_frames(capture, item, recon_kw, device)
     record["frame_w_recon"] = frame_r
     print(f"[frame_w_recon] {json.dumps(frame_r)}")
@@ -1651,7 +1684,7 @@ def main() -> int:
     print(f"[weight_image] built {weight_image.builds} times by the "
           "wrappers in this run (once per packed set and kernel family)")
     kerns = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5}
-    for name, kern in kerns.items():
+    for name, kern in (*kerns.items(), ("merge", merge)):
         # launches of this slice's main path, the pipelined stream of
         # textured production frames; the single frame's beside them
         kern["launches"] = record["stream"]["pipelined"]["launches"][name]
@@ -1696,7 +1729,7 @@ def main() -> int:
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels_line = {"kernels": [{k: kern[k] for k in keys}
-                                for kern in kerns.values()]}
+                                for kern in (*kerns.values(), merge)]}
     from avatarcap_tpu_torch.tools.bench_kernels import (
         PEAK_BF16_FLOPS, gpu_name_and_power_limit)
     smi = gpu_name_and_power_limit()
@@ -1705,7 +1738,7 @@ def main() -> int:
               f"of {PEAK_BF16_FLOPS / 1e12:.0f}, {kern['ms']:.3f} ms against "
               f"a bound of {kern['bound_ms']:.3f} ms "
               f"({100 * kern['share_of_bound']:.1f}%)")
-    record.update(kerns)
+    record.update(kerns, merge=merge)
     record["gpu"] = smi
     record["seconds"] = time.perf_counter() - t_all
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -843,3 +843,112 @@ def test_hgfilter_forms_on_card_match_cpu(card):
     assert len(got) == 2 and got[1].shape == (1, 32, 64, 64)
     for g, r in zip(got + [got_normx], ref + [ref_normx]):
         assert float((g.cpu() - r).abs().max()) <= 1e-3
+
+
+def _merge_pair(card, side, seed=0):
+    from avatarcap_tpu_torch.tools.bench_kernels import merge_inputs
+    return tuple(torch.as_tensor(a).to(card)
+                 for a in merge_inputs(side, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [512, 301])
+@pytest.mark.parametrize("iter_num", [100, 7, 0])
+@pytest.mark.parametrize("face_box", ["applied", "no-op", "outside"])
+def test_merge_kernel_matches_plain(card, side, iter_num, face_box):
+    """csrc/normal_merge.cu against merge_normal_images_plain (autograd)
+    on the card (bench_kernels.merge_agreement), at test_merge_matches_jax's
+    bounds: every pixel within 1e-3, 99% of them within 1e-4; at the
+    capture's 512^2, equal to the bit (the kernel follows the plain path's
+    rounding, and cuBLAS's K order at that size). The face box is applied
+    (neck 40 pixels above the middle), a no-op (neck_y < 90) or past the
+    image's edge (an empty slice).
+
+    Bit equality is what the benchmark's merge_gap needs: Adam's first
+    steps turn gradients near its eps (1e-8) into steps of lr, so a one-ulp
+    change of the avatar normals moves a few pixels of the plain path's own
+    result by up to 5.6e-3 on these pairs (PERF.md, section 6)."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    from avatarcap_tpu_torch.tools.bench_kernels import merge_agreement
+    src, tar = _merge_pair(card, side, seed=side + iter_num)
+    neck = {"applied": (side // 2, side // 2 - 40), "no-op": (side // 2, 60),
+            "outside": (side + 50, side + 100)}[face_box]
+    got = nf.merge_normal_images(src, tar, neck, iter_num)
+    assert got.shape == src.shape and got.device.type == "cuda"
+    if iter_num:
+        assert float((got - src).abs().max()) > 1e-2     # the merge moved
+    rec = merge_agreement(src, tar, neck, iter_num)
+    assert rec["ok"], rec
+    assert rec["bitwise"] or side != 512, rec
+    x, y = neck
+    box = (slice(y - 90, y), slice(x - 35, x + 35))
+    if face_box == "applied":
+        assert torch.equal(got[box], src[box])
+
+
+@pytest.mark.cuda
+def test_merge_kernel_repeats_bit_for_bit_without_sync(card):
+    """Two calls at the frame's shapes give the same bits (the adjoint
+    gathers in a fixed order, no atomics); the second runs under
+    torch.cuda.set_sync_debug_mode("error"); each call is one launch, and
+    under a tracer one ``merge_kernel`` span with the H x H pixels as
+    ``rows`` and the valid ones as ``live``."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    from avatarcap_tpu_torch.utils.timers import Tracer
+    src, tar = _merge_pair(card, 512)
+    neck = (256, 216)
+    first = nf.merge_normal_images(src, tar, neck)
+    before = nf.merge_normal_images.launches
+    tracer = Tracer(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with tracer("merge"):
+            second = nf.merge_normal_images(src, tar, neck)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nf.merge_normal_images.launches == before + 1
+    assert torch.equal(first, second)
+    _, valid, n_pixels, _ = nf._merge_masks(src, tar)
+    spans = [s for s in tracer.collect() if s.name == "merge_kernel"]
+    assert len(spans) == 1
+    assert spans[0].counts == {"rows": 512 * 512, "live": int(n_pixels)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iter_num,neck", [(4, (64, 120)), (20, (64, 120)),
+                                           (4, (64, 50)), (100, (64, 120))],
+                         ids=["4_iters", "20_iters", "face_box_noop",
+                              "100_iters"])
+def test_merge_kernel_matches_jax(card, iter_num, neck):
+    """csrc/normal_merge.cu on test_merge_matches_jax's inputs against the
+    JAX package's merge on them (tests/fixtures/merge_jax.npz, computed on
+    the CPU; tests/test_torch_fusion.py holds the file to the JAX package),
+    at that test's bounds: every pixel within 1e-3, 99% of them within
+    1e-4, the face box kept where it lies inside the image."""
+    import numpy as np
+    from merge_cases import case_name, load_jax_fixture, merge_inputs
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    src, tar = merge_inputs()
+    ref = load_jax_fixture()[case_name(iter_num, neck)]
+    before = nf.merge_normal_images.launches
+    with torch.inference_mode():            # as the capture frame calls it
+        got = nf.merge_normal_images(torch.as_tensor(src).to(card),
+                                     torch.as_tensor(tar).to(card), neck,
+                                     iter_num=iter_num)
+    assert nf.merge_normal_images.launches == before + 1
+    got = got.cpu().numpy()
+    assert np.all(np.isfinite(got))
+    # the merge moved pixels by more than the bound, so returning the
+    # input cannot pass (6.2e-3 after 100 steps: the rotation grid then
+    # explains most of the tilt, and the merged normals stay near src)
+    assert np.abs(ref - src).max() > 2e-3
+    d = np.abs(got - ref).max(-1)
+    assert d.max() <= 1e-3, d.max()
+    assert (d <= 1e-4).mean() >= 0.99, (d <= 1e-4).mean()
+    x, y = neck
+    box = np.s_[max(y - 90, 0):y, max(x - 35, 0):x + 35]
+    if y >= 90:
+        np.testing.assert_array_equal(got[box], src[box])
+    else:
+        assert np.abs(got[box] - src[box]).max() > 1e-2

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import merge_cases
 from conftest import make_toy_smpl_params
 
 
@@ -247,22 +248,7 @@ def test_resize_and_neighbor_shifts_match_jax():
                 np.asarray(jnf._neighbor_shift(jnp.asarray(img), di, dj)))
 
 
-def _merge_inputs(H=128, seed=0):
-    """Avatar normals tilted from noisy image normals on overlapping discs
-    (the image disc is smaller, so erosion and the distance blend act)."""
-    rs = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:H, 0:H]
-    c = H / 2
-    src_disc = (yy - c) ** 2 + (xx - c) ** 2 < (0.4 * H) ** 2
-    tar_disc = (yy - c - 3) ** 2 + (xx - c) ** 2 < (0.33 * H) ** 2
-    n = rs.normal(0, 0.2, (H, H, 3)).astype(np.float32)
-    n[..., 2] += 1.0
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    tilt = np.array([[1, 0, 0], [0, 0.97, -0.24], [0, 0.24, 0.97]],
-                    np.float32)
-    src = np.where(src_disc[..., None], n @ tilt.T, 0).astype(np.float32)
-    tar = np.where(tar_disc[..., None], n, 0).astype(np.float32)
-    return src, tar
+_merge_inputs = merge_cases.merge_inputs
 
 
 @pytest.mark.parametrize("iter_num,neck", [(4, (64, 120)), (20, (64, 120)),
@@ -299,6 +285,19 @@ def test_merge_matches_jax(iter_num, neck):
         assert np.abs(got[box] - src[box]).max() > 1e-2
 
 
+@pytest.mark.parametrize("iter_num,neck", merge_cases.JAX_CASES,
+                         ids=[merge_cases.case_name(*c)
+                              for c in merge_cases.JAX_CASES])
+def test_merge_jax_fixture_is_current(iter_num, neck):
+    """tests/fixtures/merge_jax.npz, which the card's merge kernel is held
+    to (tests/test_torch_cuda.py, where JAX is not installed), is the JAX
+    package's merge on these inputs as it computes it now."""
+    want = merge_cases.load_jax_fixture()[merge_cases.case_name(iter_num,
+                                                                neck)]
+    np.testing.assert_array_equal(merge_cases.jax_merge(iter_num, neck),
+                                  want)
+
+
 def test_merge_cover_matches_jax():
     from avatarcap_tpu.fusion.normal_fusion import merge_normal_images_cover
     from avatarcap_tpu_torch.fusion.normal_fusion import (
@@ -307,3 +306,92 @@ def test_merge_cover_matches_jax():
     ref = np.asarray(merge_normal_images_cover(jnp.asarray(src),
                                                jnp.asarray(tar)))
     np.testing.assert_array_equal(tcover(_t(src), _t(tar)).numpy(), ref)
+
+
+@pytest.mark.parametrize("H", [2, 3, 64, 97, 512])
+@pytest.mark.parametrize("iter_num", [0, 1, 7, 100])
+def test_merge_tables_match_resize_and_adam(H, iter_num):
+    """The merge kernel's host-built tables, exactly: the taps rebuild
+    _resize_matrix(64, H), the adjoint supports its transpose (fine rows
+    ascending within each grid row), and the bias corrections equal
+    ops/adam.Adam._correction at every step of either phase."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    from avatarcap_tpu_torch.ops.adam import Adam
+    t = nf.merge_tables(H, iter_num)
+    m = nf._resize_matrix(nf.MERGE_GRID, H)
+    dense = np.zeros_like(m)
+    for k in range(2):
+        np.add.at(dense, (np.arange(H), t["taps_idx"][:, k]),
+                  t["taps_w"][:, k])
+    np.testing.assert_array_equal(dense, m)
+    adj = np.zeros_like(m.T)
+    off = t["adj_off"]
+    assert off[0] == 0 and len(off) == nf.MERGE_GRID + 1
+    for h in range(nf.MERGE_GRID):
+        rows = t["adj_idx"][off[h]:off[h + 1]]
+        assert np.all(np.diff(rows) > 0)
+        adj[h, rows] = t["adj_w"][off[h]:off[h + 1]]
+    np.testing.assert_array_equal(adj, m.T)
+    n = iter_num - iter_num // 2
+    opt = Adam([torch.zeros(1)])
+    want1, want2 = [], []
+    for step in range(1, n + 1):
+        opt.count = step
+        want1.append(float(opt._correction(0.9)))
+        want2.append(float(opt._correction(0.999)))
+    assert t["corr1"].dtype == t["corr2"].dtype == np.float32
+    np.testing.assert_array_equal(t["corr1"], np.float32(want1))
+    np.testing.assert_array_equal(t["corr2"], np.float32(want2))
+
+
+def test_merge_source_constants_match():
+    """csrc/normal_merge.cu's grid side and workspace against the Python
+    side's."""
+    from avatarcap_tpu_torch import kernels
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    c = kernels.source_constants("normal_merge.cu")
+    assert c["kGrid"] == nf.MERGE_GRID
+    assert nf.MERGE_WORK_FLOATS == 4 * c["kGridElems"]
+    assert "normal_merge" in kernels.SOURCES
+
+
+def test_merge_cpu_takes_plain_path():
+    """A CPU call runs merge_normal_images_plain (the same bits), launches
+    nothing and opens no merge_kernel span; another device raises."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    from avatarcap_tpu_torch.utils.timers import Tracer
+    src, tar = _merge_inputs(48, seed=2)
+    before = nf.merge_normal_images.launches
+    tracer = Tracer("cpu")
+    with tracer("merge"):
+        got = nf.merge_normal_images(_t(src), _t(tar), (24, 40), iter_num=6)
+    assert nf.merge_normal_images.launches == before
+    assert [s.name for s in tracer.collect()] == ["merge"]
+    ref = nf.merge_normal_images_plain(_t(src), _t(tar), (24, 40), iter_num=6)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nf.merge_normal_images(torch.zeros((4, 4, 3), device="meta"),
+                               torch.zeros((4, 4, 3), device="meta"), (0, 0))
+
+
+@pytest.mark.parametrize("case", ["not_square", "tar_shape", "side_1",
+                                  "float64", "negative_iters"])
+def test_merge_kernel_rejects_what_it_does_not_take(case):
+    """The kernel path's checks, which run before anything touches a
+    card."""
+    from avatarcap_tpu_torch.fusion import normal_fusion as nf
+    src = torch.zeros((8, 8, 3))
+    tar = torch.zeros((8, 8, 3))
+    iters = 10
+    if case == "not_square":
+        src = torch.zeros((8, 9, 3))
+    elif case == "tar_shape":
+        tar = torch.zeros((8, 8, 4))
+    elif case == "side_1":
+        src, tar = torch.zeros((1, 1, 3)), torch.zeros((1, 1, 3))
+    elif case == "float64":
+        src, tar = src.double(), tar.double()
+    else:
+        iters = -1
+    with pytest.raises(ValueError):
+        nf._merge_launch(src, tar, (0, 0), iters)
