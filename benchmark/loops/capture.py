@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import generate, subject
+from benchmark import generate, networks, subject
 from benchmark.harness import Run
 from benchmark.reference import precision
 from benchmark.reference.capture_check import CaptureReference, check_frame
@@ -78,22 +78,21 @@ class LiveWork:
 
 def build_capture(cfg: dict, mix: dict, weights: dict, statics, grid: dict,
                   device):
-    """The program's AvatarCapture on the benchmark's weights, statics and
+    """The program's AvatarCapture, its networks in the configuration's
+    form (benchmark/networks.py), on the benchmark's weights, statics and
     grid (copies: the program keeps nothing of the benchmark's)."""
-    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
-    from avatarcap_tpu_torch.models.recon import ReconNetwork
     from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureGrid,
                                                       CaptureOptions)
 
-    def load(module, state):
+    def load(role, state):
+        module = networks.build(cfg, role, "program")
         module.load_state_dict(state)
         return module.eval()
-    form = dict(if_type=cfg["if_type"])
-    avatar = load(GeoTexAvatar(**form), weights["avatar"])
-    tex = load(GeoTexAvatar(**form), weights["tex"]) if mix["w_nerf"] else None
-    recon = load(ReconNetwork(), weights["recon"]) if mix["w_recon"] else None
+    avatar = load("avatar", weights["avatar"])
+    tex = load("avatar", weights["tex"]) if mix["w_nerf"] else None
+    recon = load("recon", weights["recon"]) if mix["w_recon"] else None
     st = AvatarStatics(*(t.detach().clone() for t in statics))
     g = CaptureGrid(grid["valid_pts"].clone(), grid["valid_idx"].clone(),
                     grid["prior_volume"].clone(), tuple(grid["vol_res"]))
@@ -167,6 +166,7 @@ def to_numpy(h: dict) -> dict:
 
 def run(r: Run) -> None:
     cfg, mix, dev = r.cfg, r.mix, r.device
+    networks.check(cfg)
     cuda = dev.type == "cuda"
     # the configuration's float32 work runs in float32 (TF32 off)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import generate, subject
+from benchmark import generate, networks, subject
 from benchmark.harness import Run
 from benchmark.reference import precision
 from benchmark.reference.train_check import compare, reference_steps
@@ -47,22 +47,22 @@ def first_gradients(state, groups) -> dict:
 
 
 def run(r: Run) -> None:
-    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
     from avatarcap_tpu_torch.pipeline.avatar import AvatarStatics
     from avatarcap_tpu_torch.train.trainer import AvatarTrainer, GROUPS
 
     cfg, mix, dev = r.cfg, r.mix, r.device
+    networks.check(cfg)
     tr = cfg["train"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     params, statics, cano_v = subject.toy_avatar_statics(cfg["body"], dev)
-    init = subject.train_weights(r.seed)
+    init = subject.train_weights(cfg, r.seed)
     pool_np = generate.train_pool(mix, cfg, params, cano_v,
                                   statics.cano_smpl_center.cpu().numpy(),
                                   r.seed)
     pool = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
             for b in pool_np]
-    model = GeoTexAvatar(if_type=cfg["if_type"])
+    model = networks.build(cfg, "avatar", "program")
     model.load_state_dict(init)
     trainer = AvatarTrainer(
         statics=AvatarStatics(*(t.detach().clone() for t in statics)),

@@ -7,7 +7,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
-from benchmark import trace, work
+from benchmark import networks, trace, work
 
 
 def traced(run) -> Optional[dict]:
@@ -88,19 +88,21 @@ def frame_flops(run) -> Optional[float]:
 
 
 def unet_macs(cfg: dict) -> int:
+    """The pose U-Net's convolutions on one position map, counted on the
+    configuration's reference avatar on the meta device."""
     import torch
-    from benchmark.reference.avatar_model import GeoTexAvatar
+    unet = networks.meta(cfg, "avatar").warping_field.unet
     with torch.device("meta"):
-        unet = GeoTexAvatar().warping_field.unet
         x = torch.empty(1, 6, cfg["pos_map_res"], cfg["pos_map_res"])
     return work.conv_macs(unet, lambda: unet(x))
 
 
 def hgfilter_macs(cfg: dict) -> int:
+    """ReconNet's image encoder on one img_res^2 pair of normal images,
+    the same way."""
     import torch
-    from benchmark.reference.recon import ReconNetwork
     res = cfg["capture"]["img_res"]
+    enc = networks.meta(cfg, "recon").image_encoder
     with torch.device("meta"):
-        enc = ReconNetwork().image_encoder
         x = torch.empty(1, 6, res, res)
     return work.conv_macs(enc, lambda: enc(x))

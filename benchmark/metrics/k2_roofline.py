@@ -1,7 +1,8 @@
 """K2's least time for the launches of the stretch with the program's own
-spans (work.launch_bound_s on each ``k2`` span's live points: 33 float32
-in and 1 out, 136 bytes a point, and the decoder's weights once) over
-recon_decode_kernel's device time in that stretch (benchmark/spans.py)."""
+spans (work.launch_bound_s on each ``k2`` span's live points: the float32
+input row in and the occupancy out, work.k2_bytes_per_point, and the
+decoder's weights once) over recon_decode_kernel's device time in that
+stretch (benchmark/spans.py)."""
 
 from benchmark import spans, work
 
@@ -16,6 +17,7 @@ def read(run):
         return None
     w = run.cfg["widths"]
     wb = work.weight_bytes(work.recon_shapes(w))
-    bound = sum(work.launch_bound_s(n, work.k2_macs_per_point(w), 136, wb)
+    bound = sum(work.launch_bound_s(n, work.k2_macs_per_point(w),
+                                    work.k2_bytes_per_point(w), wb)
                 for n in lives)
     return 100.0 * bound / (ns * 1e-9)

@@ -43,7 +43,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from benchmark.reference.avatar_model import GeoTexAvatar
+from benchmark import networks
 from benchmark.reference.avatar_query import (NEAR_SMPL_DIST,
                                               compute_pose_features,
                                               grid_pose_features,
@@ -56,7 +56,6 @@ from benchmark.reference.raster import (cano_front_back_mvp,
                                         cano_index_passes,
                                         gl_perspective_projection_matrix,
                                         interpolate, lift_image_normals)
-from benchmark.reference.recon import ReconNetwork
 from benchmark.reference.skinning import (build_skin_weight_volume,
                                           skin_points_by_volume)
 
@@ -75,10 +74,9 @@ class CaptureReference:
         self.statics = statics.to(self.device)
         self.grid = {k: (v.to(self.device) if torch.is_tensor(v) else v)
                      for k, v in grid.items()}
-        form = dict(if_type=cfg["if_type"])
-        self.avatar = self._load(GeoTexAvatar(**form), weights["avatar"])
-        self.tex = self._load(GeoTexAvatar(**form), weights["tex"])
-        self.recon = self._load(ReconNetwork(), weights["recon"])
+        self.avatar = self._load("avatar", weights["avatar"])
+        self.tex = self._load("avatar", weights["tex"])
+        self.recon = self._load("recon", weights["recon"])
         self.skin_wvol = build_skin_weight_volume(
             self.statics.cano_smpl_vertices,
             self.statics.smpl_skinning_weights, self.statics.cano_bounds,
@@ -92,7 +90,8 @@ class CaptureReference:
         self.band[vi.clamp(0, n)] = True
         self.band = self.band[:n]
 
-    def _load(self, module, state):
+    def _load(self, role, state):
+        module = networks.build(self.cfg, role, "reference")
         module.load_state_dict(state)
         return module.to(self.device).eval()
 

@@ -21,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from benchmark.reference.avatar_model import GeoTexAvatar
+from benchmark import networks
 from benchmark.reference.avatar_query import AvatarStatics
 from benchmark.reference.train_step import (GROUPS, TrainState,
                                             make_optimizer, make_train_step)
@@ -32,7 +32,7 @@ def reference_steps(cfg: dict, mix: dict, init: dict, statics, pool, device
     """The reference's checked steps: losses, first gradients, the leaves
     before and after."""
     tr = cfg["train"]
-    model = GeoTexAvatar(if_type=cfg["if_type"])
+    model = networks.build(cfg, "avatar", "reference")
     model.load_state_dict(init)
     model = model.to(device).train()
     st = AvatarStatics(*(t.to(device) for t in statics))

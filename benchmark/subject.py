@@ -7,14 +7,15 @@ at commit 2621afd (``toy_avatar_statics``, ``random_avatar``,
 ``build_capture_grid``, the wrinkled-body fit and ``train_batch``),
 written on the reference's modules (benchmark/reference/): the toy body,
 its statics and the canonical grid; GeoTexAvatar, its texture copy and
-ReconNet at the configuration's widths, started as the JAX bench's
-networks start; the capture camera. The avatar's pose U-Net, warp and
-texture are drawn from the run's seed; its template, fitted to the toy
-body with 6 mm folds, and ReconNet, fitted to the same body's occupancy
-on its own canonical normal images, are the configuration's (made from
-its fixed seeds), so that every seed's frames hold the same surface and
-the same amount of work. The fitted state dicts are cached under
-benchmark/cache/fit/, keyed on the configuration's fit.
+ReconNet in the configuration's form (benchmark/networks.py), started as
+the JAX bench's networks start; the capture camera. The avatar's pose
+U-Net, warp and texture are drawn from the run's seed; its template,
+fitted to the toy body with 6 mm folds, and ReconNet, fitted to the same
+body's occupancy on its own canonical normal images, are the
+configuration's (made from its fixed seeds), so that every seed's frames
+hold the same surface and the same amount of work. The fitted state
+dicts are cached under benchmark/cache/fit/, keyed on the configuration's
+fit and, where they are not AvatarCap's, its networks and widths.
 """
 
 from __future__ import annotations
@@ -30,15 +31,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from benchmark import networks
 from benchmark.reference.adam import Adam
-from benchmark.reference.avatar_model import GeoTexAvatar
 from benchmark.reference.avatar_query import AvatarStatics, grid_pose_features
 from benchmark.reference.compaction import compact_mask_indices
 from benchmark.reference.knn import knn
 from benchmark.reference.layers import WeightNormPointConv1d
 from benchmark.reference.raster import (cano_front_back_mvp, cano_index_passes,
                                         interpolate)
-from benchmark.reference.recon import ReconNetwork
 from benchmark.reference.se3 import axis_angle_to_matrix
 from benchmark.reference.smpl import canonical_pose, smpl_forward
 from benchmark.reference.toy_body import make_toy_smpl_params
@@ -149,12 +149,13 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def random_avatar(generator: torch.Generator, **form) -> GeoTexAvatar:
-    """GeoTexAvatar at its published widths, every weight drawn from
-    ``generator``: LeCun-uniform weights, U(-0.1, 0.1) biases, BatchNorm
-    statistics around (0, 1), the offset head U(+-0.002) and the geometry
-    head U(+-0.1)."""
-    model = GeoTexAvatar(**form)
+def random_avatar(cfg: dict, generator: torch.Generator,
+                  **override) -> nn.Module:
+    """The configuration's reference GeoTexAvatar (its keywords replaced
+    by ``override``), every weight drawn from ``generator``: LeCun-uniform
+    weights, U(-0.1, 0.1) biases, BatchNorm statistics around (0, 1), the
+    offset head U(+-0.002) and the geometry head U(+-0.1)."""
+    model = networks.build(cfg, "avatar", "reference", **override)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() > 1:
@@ -177,8 +178,8 @@ def random_avatar(generator: torch.Generator, **form) -> GeoTexAvatar:
     return model.eval()
 
 
-def random_tex_avatar(avatar: GeoTexAvatar,
-                      generator: torch.Generator) -> GeoTexAvatar:
+def random_tex_avatar(avatar: nn.Module,
+                      generator: torch.Generator) -> nn.Module:
     """A texture avatar: a copy of ``avatar`` whose density row of the
     geometry head is redrawn, U(-1, 1) weights and a bias of 4, so the
     color rays carry O(0.1) colors."""
@@ -191,14 +192,14 @@ def random_tex_avatar(avatar: GeoTexAvatar,
     return tex.eval()
 
 
-def random_recon(generator: torch.Generator) -> ReconNetwork:
-    """ReconNetwork at its published widths, every weight drawn from
+def random_recon(cfg: dict, generator: torch.Generator) -> nn.Module:
+    """The configuration's reference ReconNetwork, every weight drawn from
     ``generator`` (see bench_workloads.random_recon)."""
     def lecun_(w):
         bound = (3.0 / w[0].numel()) ** 0.5
         w.uniform_(-bound, bound, generator=generator)
 
-    model = ReconNetwork()
+    model = networks.build(cfg, "recon", "reference")
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.GroupNorm):
@@ -212,7 +213,7 @@ def random_recon(generator: torch.Generator) -> ReconNetwork:
                 lecun_(m.weight_v)
                 m.weight_g.copy_(m.weight_v.norm(dim=(1, 2), keepdim=True))
                 m.bias.uniform_(-0.1, 0.1, generator=generator)
-        head = model.image_decoder.fc_list[3]
+        head = model.image_decoder.fc_list[-1]
         head.weight.uniform_(-0.3, 0.3, generator=generator)
         head.bias.zero_()
     return model.eval()
@@ -362,6 +363,46 @@ def _fit_decoder(recon, params, statics, grid, res, fit, generator):
     return float(loss.detach())
 
 
+# AvatarCap's networks and widths, those of geotex_sdf and geotex_occ: their
+# fits are keyed without them and so keep their cache names
+AVATARCAP_FORM = {
+    "networks": {
+        "avatar": {
+            "reference": "benchmark.reference.avatar_model:GeoTexAvatar",
+            "kwargs": {"pos_encoding_template": 10, "pos_encoding_warp": 0}},
+        "recon": {"reference": "benchmark.reference.recon:ReconNetwork",
+                  "kwargs": {"feat_channels": 32}}},
+    "widths": {"template_pos_encoding": 10, "warp_pos_encoding": 0,
+               "pose_feat_dim": 64, "offset_width": 256,
+               "template_width": 256, "recon_in_dim": 33,
+               "recon_widths": [512, 256, 128], "unet_nf": 32,
+               "hgfilter_channels": 256, "hgfilter_depth": 4,
+               "recon_res_layers": [1, 2]}}
+
+
+def fit_keys(cfg: dict, device) -> Tuple[dict, dict]:
+    """The fit cache's keys of the template's fit and the decoder's: the
+    body, grid, renders, device, folds and each fit's settings, and the
+    reference networks' classes and keywords with the widths where they
+    are not AvatarCap's."""
+    fit = cfg["fit"]
+    form = {"networks": {role: {"reference": e.get("reference"),
+                                "kwargs": e.get("kwargs", {})}
+                         for role, e in cfg["networks"].items()},
+            "widths": cfg["widths"]}
+    base = {"body": cfg["body"], "vol_res": cfg["vol_res"],
+            "render_res": cfg["capture"]["options"]["render_res"],
+            "device": torch.device(device).type, "version": FIT_VERSION,
+            "amp": fit["wrinkle_amp"], "wavelength": fit["wavelength"]}
+    if form != AVATARCAP_FORM:
+        base["form"] = form
+    return (dict(base, part="template", seed=fit["template_seed"],
+                 steps=fit["template_steps"], n_pts=fit["n_pts"]),
+            dict(base, part="decoder", seed=fit["recon_seed"],
+                 steps=fit["decoder_steps"], batch=fit["batch"],
+                 tau=fit["decoder_tau"], noise=fit["image_noise"]))
+
+
 def _cache_path(key: dict) -> str:
     digest = hashlib.sha1(json.dumps(key, sort_keys=True).encode()
                           ).hexdigest()[:16]
@@ -407,7 +448,10 @@ def capture_weights(cfg: dict, seed: int, params, statics, grid, device,
     s_avatar, s_tex = seed_parts(seed, 2)
     t_init, t_fit = seed_parts(fit["template_seed"], 2)
     r_init, r_flax, r_fit = seed_parts(fit["recon_seed"], 3)
-    avatar = random_avatar(torch.Generator().manual_seed(s_avatar))
+    # the template is fitted to a signed distance in the SDF form; the
+    # occupancy form's weights are the same under its sigmoid
+    avatar = random_avatar(cfg, torch.Generator().manual_seed(s_avatar),
+                           if_type="sdf")
     g = torch.Generator().manual_seed(t_init)
     flax_init_(avatar.cano_template, g)
     with torch.no_grad():
@@ -415,12 +459,9 @@ def capture_weights(cfg: dict, seed: int, params, statics, grid, device,
                      avatar.warping_field.out_layer_coord_affine):
             head.weight.uniform_(-1e-5, 1e-5, generator=g)
             head.bias.zero_()
-    recon = random_recon(torch.Generator().manual_seed(r_init))
+    recon = random_recon(cfg, torch.Generator().manual_seed(r_init))
     flax_init_(recon, torch.Generator().manual_seed(r_flax))
-    base = {"body": cfg["body"], "vol_res": cfg["vol_res"],
-            "render_res": cfg["capture"]["options"]["render_res"],
-            "device": torch.device(device).type, "version": FIT_VERSION,
-            "amp": fit["wrinkle_amp"], "wavelength": fit["wavelength"]}
+    template_key, decoder_key = fit_keys(cfg, device)
     avatar.to(device)
     recon.to(device)
 
@@ -431,16 +472,12 @@ def capture_weights(cfg: dict, seed: int, params, statics, grid, device,
     def fit_decoder():
         gen = torch.Generator(device=device).manual_seed(r_fit)
         return _fit_decoder(recon, params, statics, grid,
-                            base["render_res"], fit, gen)
-    rec = {"template": _cached(
-        dict(base, part="template", seed=fit["template_seed"],
-             steps=fit["template_steps"], n_pts=fit["n_pts"]),
-        avatar.cano_template, fit_template, use_cache),
-        "decoder": _cached(
-        dict(base, part="decoder", seed=fit["recon_seed"],
-             steps=fit["decoder_steps"], batch=fit["batch"],
-             tau=fit["decoder_tau"], noise=fit["image_noise"]),
-        recon.image_decoder, fit_decoder, use_cache)}
+                            cfg["capture"]["options"]["render_res"], fit,
+                            gen)
+    rec = {"template": _cached(template_key, avatar.cano_template,
+                               fit_template, use_cache),
+           "decoder": _cached(decoder_key, recon.image_decoder, fit_decoder,
+                              use_cache)}
     avatar.cpu().eval()
     recon.cpu().eval()
     tex = random_tex_avatar(avatar, torch.Generator().manual_seed(s_tex))
@@ -451,10 +488,11 @@ def capture_weights(cfg: dict, seed: int, params, statics, grid, device,
              "recon": recon.state_dict()}, rec)
 
 
-def train_weights(seed: int) -> Dict:
-    """The training cell's starting GeoTexAvatar state dict from ``seed``
-    (random_avatar, the JAX bench's build_train_env)."""
-    return random_avatar(torch.Generator().manual_seed(
+def train_weights(cfg: dict, seed: int) -> Dict:
+    """The training cell's starting GeoTexAvatar state dict, in the
+    configuration's form, from ``seed`` (random_avatar, the JAX bench's
+    build_train_env)."""
+    return random_avatar(cfg, torch.Generator().manual_seed(
         seed_parts(seed, 1)[0])).state_dict()
 
 

@@ -14,7 +14,11 @@ SPEC = load_json(os.path.join(os.path.dirname(ROOT), "BENCHMARK.json"))
 
 
 def small_cfg(cell: str) -> dict:
-    cfg = copy.deepcopy(cell_files(SPEC, cell)[1])
+    return shrink(copy.deepcopy(cell_files(SPEC, cell)[1]))
+
+
+def shrink(cfg: dict) -> dict:
+    """``cfg`` at the small sizes, in place."""
     cfg["vol_res"] = [48, 48, 32]
     cfg["body"] = {"n_lat": 9, "n_lon": 12, "vertices": 98}
     cfg["capture"]["img_res"] = 128

@@ -51,7 +51,8 @@ def test_train_pool_repeats_by_seed():
 
 
 def test_train_weights_repeat_by_seed():
-    a, b, c = (subject.train_weights(s) for s in (SEED, SEED, SEED + 1))
+    cfg = small_cfg("sdf.train_b4")
+    a, b, c = (subject.train_weights(cfg, s) for s in (SEED, SEED, SEED + 1))
     for k in a:
         assert torch.equal(a[k], b[k])
     assert any(not torch.equal(a[k], c[k]) for k in a

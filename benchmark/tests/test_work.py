@@ -4,7 +4,7 @@ today's widths."""
 import numpy as np
 import torch
 
-from benchmark import work
+from benchmark import networks, work
 from benchmark.metrics import unet_macs
 from benchmark.tests.small import small_cfg
 
@@ -33,7 +33,6 @@ def test_launch_bound_equals_bench_kernels():
 
 
 def test_step_macs_equal_bench_train():
-    from avatarcap_tpu_torch.models.avatar import GeoTexAvatar
     from avatarcap_tpu_torch.tools.bench_train import step_macs
     torch.set_num_threads(4)
     cfg = small_cfg("sdf.train_b4")
@@ -43,7 +42,8 @@ def test_step_macs_equal_bench_train():
              "cano_pts": torch.zeros(B, tr["n_surf"] + tr["n_vol"], 3),
              "smpl_pos_map": torch.zeros(B, 256, 256, 6),
              "live_smpl_v": torch.zeros(B, cfg["body"]["vertices"], 3)}
-    theirs = step_macs(GeoTexAvatar().eval(), batch, tr["n_samples"])
+    theirs = step_macs(networks.build(cfg, "avatar", "program").eval(),
+                       batch, tr["n_samples"])
     ours = work.train_step_macs(cfg["widths"], tr, unet_macs(cfg) * B,
                                 cfg["body"]["vertices"])
     assert ours == {k: theirs[k] for k in ours}

@@ -51,11 +51,16 @@ def template_shapes(w: dict):
 
 
 def recon_shapes(w: dict):
-    """(out, in) of ReconNet's decoder: 33 -> 512, [h, x] -> 256, [h, x]
-    -> 128, 128 -> 1."""
-    d = w["recon_in_dim"]
-    a, b, c = w["recon_widths"]
-    return ((a, d), (b, a + d), (c, b + d), (1, c))
+    """(out, in) of ReconNet's decoder: recon_in_dim -> each of
+    recon_widths -> 1, the input concatenated back ([h, x]) before each
+    layer whose index is in recon_res_layers (AvatarCap's: 33 -> 512,
+    [h, x] -> 256, [h, x] -> 128, 128 -> 1)."""
+    d, res = w["recon_in_dim"], set(w["recon_res_layers"])
+    shapes, prev = [], d
+    for i, out in enumerate(list(w["recon_widths"]) + [1]):
+        shapes.append((out, prev + (d if i in res else 0)))
+        prev = out
+    return tuple(shapes)
 
 
 def macs(shapes: Sequence) -> int:
@@ -73,6 +78,12 @@ def k1_macs_per_point(w: dict) -> int:
 
 def k2_macs_per_point(w: dict) -> int:
     return macs(recon_shapes(w))
+
+
+def k2_bytes_per_point(w: dict) -> int:
+    """K2's float32 input row (the pixel-aligned feature and z) in and its
+    occupancy out."""
+    return 4 * (w["recon_in_dim"] + 1)
 
 
 def launch_bound_s(n: float, macs_per_point: int, bytes_per_point: float,
