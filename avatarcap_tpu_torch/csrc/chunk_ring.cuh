@@ -1,6 +1,6 @@
 // The weight ring and the layer steps of the port's wgmma kernels: the
 // warp + template chain (warp_template_core.cuh: K1, K3, K4, K5) and the
-// ReconNet decoder (recon_decode.cu: K2).
+// ReconNet decoders (recon_decode.cu: K2; recon_decode_wide.cu: K2w).
 //
 // A block owns a tile of kTile = 128 points, 64 per consumer warpgroup. A
 // warpgroup keeps its rows' hidden activations in registers; inputs that a
@@ -70,8 +70,17 @@ constexpr int kChunkElems128 = 128 * kChunkK;
 
 // ---- the ring of weight chunks -------------------------------------------
 
-constexpr int kStages = 21;
-constexpr int kStageBytes = 2 * kChunkElems256;          // 8 KB
+// A kernel may define CHUNK_RING_STAGES and CHUNK_RING_STAGE_BYTES before
+// including this header (recon_decode_wide.cu: 6 stages of 16 KB, each
+// holding several chunks).
+#ifndef CHUNK_RING_STAGES
+#define CHUNK_RING_STAGES 21
+#endif
+#ifndef CHUNK_RING_STAGE_BYTES
+#define CHUNK_RING_STAGE_BYTES 8192
+#endif
+constexpr int kStages = CHUNK_RING_STAGES;
+constexpr int kStageBytes = CHUNK_RING_STAGE_BYTES;      // 8 KB: one chunk at O = 256
 // stages, then kStages full and kStages + 1 empty mbarriers (8 bytes each;
 // the last empty barrier is a dummy: see Products), padded to 16 bytes
 constexpr size_t kRingBytes = kStages * kStageBytes + (2 * kStages + 2) * 8;

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("warp_template_query", "recon_decode", "ray_color_query",
-           "template_offset_query", "normal_merge")
+           "template_offset_query", "normal_merge", "recon_decode_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,11 +53,20 @@ def library_path(name: str) -> Path:
 def source_constants(*files: str) -> Dict[str, int]:
     """The integer ``constexpr`` constants that the given ``csrc`` files
     state, evaluated in order (each may use the ones before it); those of
-    a type size are left out. The tests hold the Python side's numbers to
-    them."""
+    a type size are left out. An integer ``#define`` of any of the files
+    is known to all of them; one inside ``#ifndef`` of its own name is a
+    default, which a plain one overrides. The tests hold the Python side's
+    numbers to them."""
+    texts = [(CSRC / name).read_text() for name in files]
     env: Dict[str, int] = {}
-    for name in files:
-        text = (CSRC / name).read_text()
+    defaults: Dict[str, int] = {}
+    for text in texts:
+        for guard, key, value in re.findall(
+                r"^(?:#ifndef (\w+)\n)?#define (\w+) (\d+)$", text, re.M):
+            (defaults if guard == key else env).setdefault(key, int(value))
+    for key, value in defaults.items():
+        env.setdefault(key, value)
+    for text in texts:
         for key, expr in re.findall(
                 r"^constexpr (?:int|size_t) (k\w+) =\s*([^;]+);", text, re.M):
             if "sizeof" in expr:

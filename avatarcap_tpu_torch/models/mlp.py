@@ -19,8 +19,9 @@ from avatarcap_tpu_torch.models.layers import (BatchNorm1d, PointConv1d,
 
 
 class MLP(nn.Module):
-    """Residual-concat MLP: hidden layer i in ``res_layers`` consumes
-    concat([h, input]); hidden layers use ReLU, or LeakyReLU(0.02) with
+    """Residual-concat MLP: layer i in ``res_layers`` (the output conv is
+    layer ``len(inter_channels)``) consumes concat([h, input]); hidden
+    layers use ReLU, or LeakyReLU(``leaky_slope``, 0.02 by default) with
     ``nlactv="leaky_relu"``; the output conv has no activation, then a
     sigmoid with ``last_op="sigmoid"``. ``weight_norm`` applies to the
     hidden layers only (the reference never weight-norms the output
@@ -29,7 +30,7 @@ class MLP(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  inter_channels: Sequence[int], res_layers: Sequence[int] = (),
                  nlactv: str = "relu", last_op: Optional[str] = None,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, leaky_slope: float = 0.02):
         super().__init__()
         if last_op not in (None, "sigmoid"):
             raise ValueError(f"unsupported last_op {last_op!r}")
@@ -40,7 +41,7 @@ class MLP(nn.Module):
         prev = in_channels
         for i, ch in enumerate(inter_channels):
             cin = prev + (in_channels if i in self.res_layers else 0)
-            act = (nn.LeakyReLU(0.02) if nlactv == "leaky_relu"
+            act = (nn.LeakyReLU(leaky_slope) if nlactv == "leaky_relu"
                    else nn.ReLU())
             self.fc_list.append(nn.Sequential(hidden(cin, ch), act))
             prev = ch

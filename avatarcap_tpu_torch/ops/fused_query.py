@@ -8,7 +8,8 @@ PyTorch. Nothing falls back from the card to the plain version.
   K1 ``warp_template_query``  :warp_template_query_fused (pallas_call
      :341, body _warp_template_core :255-296), csrc/warp_template_query.cu
   K2 ``recon_decode``         :recon_decode_fused (:239, _recon_kernel
-     :188-200), csrc/recon_decode.cu
+     :188-200), csrc/recon_decode.cu; PIFu's decoder through the same
+     wrapper on K2w, csrc/recon_decode_wide.cu (no Pallas counterpart)
   K3 ``ray_color_query``      :ray_color_query_fused (:496,
      _ray_color_kernel :362-440), csrc/ray_color_query.cu
   K4 ``template_query``       :template_query_fused (:533,
@@ -46,7 +47,11 @@ one f32 operation. K2's: all 33 inputs rounded to bf16 (z included); bf16
 operands and f32 accumulation in every product, the f32 bias added after;
 every leaky ReLU (0.02) output rounded to bf16; skip concats [h, x] with
 the bf16 input; the 128 -> 1 output not rounded before the f32 sigmoid;
-weight norm folded into the packed weights.
+weight norm folded into the packed weights. K2w's (PIFu's shape network,
+257 -> 1024 -> 512 -> 256 -> 128 -> 1 with [h, x] before every layer after
+the first): the same, with leaky ReLU (0.01) and no weight norm; the
+kernel sums z's products apart from the 256 features' (bf16 operands
+both, f32 accumulation: only the order of the f32 sums differs).
 """
 
 from __future__ import annotations
@@ -84,6 +89,21 @@ MAX_ANCHORS = 16
 RECON_IN_DIM = 33
 RECON_SHAPES = ((512, 33), (256, 545), (128, 289), (1, 128))
 RECON_MACS_PER_POINT = sum(o * i for o, i in RECON_SHAPES)     # 193,536
+# K2w: PIFu's shape network (scripts/test.sh: --mlp_dim 257 1024 512 256
+# 128 1, the input concatenated again before every layer after the first)
+RECON_WIDE_IN_DIM = 257
+RECON_WIDE_SHAPES = ((1024, 257), (512, 1281), (256, 769), (128, 513),
+                     (1, 385))
+RECON_WIDE_MACS_PER_POINT = sum(o * i for o, i in RECON_WIDE_SHAPES)
+# the decoders a kernel runs, by their packed shapes: the kernel's span, the
+# layers that take the input again and the leaky slope that the kernel has
+# built in
+RECON_FORMS = {RECON_SHAPES: ("k2", (1, 2), 0.02),
+               RECON_WIDE_SHAPES: ("k2w", (1, 2, 3, 4), 0.01)}
+
+
+def _recon_shapes(packed: Sequence[torch.Tensor]) -> tuple:
+    return tuple(tuple(w.shape) for w in packed[0::2])
 
 
 def _pack_layer(weight_oi: torch.Tensor, bias: torch.Tensor):
@@ -125,15 +145,27 @@ def pack_template_weights(cano_template) -> Tuple[torch.Tensor, ...]:
 
 
 def pack_recon_weights(image_decoder) -> Tuple[torch.Tensor, ...]:
-    """ReconNet ``image_decoder`` (weight-normed MLP) -> (w0, b0, ..., w3,
-    b3): (O, I) bf16 weights with w = g v / |v| folded in f32, (O,) f32
-    biases."""
+    """ReconNet ``image_decoder`` (models/mlp.MLP, any number of hidden
+    layers) -> (w0, b0, ..., wL, bL): (O, I) bf16 weights, with
+    w = g v / |v| folded in f32 where a layer is weight-normed, (O,) f32
+    biases. A decoder of a kernel's shapes (RECON_FORMS) must have that
+    kernel's skips and leaky slope (ValueError)."""
     fc = image_decoder.fc_list
     packed = []
-    for i in range(3):
-        conv = fc[i][0]
-        packed += _pack_layer(conv.folded_weight(), conv.bias)
-    packed += _pack_layer(fc[3].weight[:, :, 0], fc[3].bias)
+    for block in fc[:-1]:
+        conv = block[0]
+        w = (conv.folded_weight() if hasattr(conv, "folded_weight")
+             else conv.weight[:, :, 0])
+        packed += _pack_layer(w, conv.bias)
+    packed += _pack_layer(fc[-1].weight[:, :, 0], fc[-1].bias)
+    form = RECON_FORMS.get(_recon_shapes(packed))
+    if form is not None:
+        slope = getattr(fc[0][1], "negative_slope", None)
+        if (tuple(image_decoder.res_layers), slope) != form[1:]:
+            raise ValueError(
+                f"a decoder of these shapes runs on a kernel with skips "
+                f"{form[1]} and leaky slope {form[2]}; this one has "
+                f"{tuple(image_decoder.res_layers)} and {slope}")
     return tuple(packed)
 
 
@@ -213,10 +245,14 @@ def _unpad_weight(w_pad: torch.Tensor, i: int, seg0: int, pad0: int
 
 def _padded_biases(packed: Sequence[torch.Tensor]) -> torch.Tensor:
     """Every layer's f32 bias in packed order, each padded to 4 floats."""
-    biases = []
-    for b in packed[1::2]:
-        biases += [b, b.new_zeros((-b.numel()) % _BIAS_ALIGN)]
-    return torch.cat(biases)
+    return _padded_vectors(packed[1::2])
+
+
+def _padded_vectors(vectors: Sequence[torch.Tensor]) -> torch.Tensor:
+    out = []
+    for b in vectors:
+        out += [b, b.new_zeros((-b.numel()) % _BIAS_ALIGN)]
+    return torch.cat(out)
 
 
 def _half_image(packed: Sequence[torch.Tensor], half: str):
@@ -341,6 +377,87 @@ def unpack_recon_weight_image(image: torch.Tensor) -> List[torch.Tensor]:
     return out
 
 
+# The weight image of K2w (csrc/recon_decode_wide.cu states the same
+# numbers). Each layer's input splits into h (the previous layer's output,
+# none for layer 0), the 256 pixel-aligned features and z: the h and
+# feature columns are cut into chunks of CHUNK_K columns of some rows, each
+# as [k / 8][n][k % 8]; z's column goes to the f32 vectors, beside the
+# biases. Regions, in this order: layer 0 (eight slices of 128 rows, 16
+# chunks each), layer 1's h columns (two halves of 256 rows, then eight
+# slices of 128 columns, 8 chunks each), layer 1's feature columns (per
+# half, 16 chunks), layer 2 (h columns 256-511, h columns 0-255, features:
+# 48 chunks at O = 256), layer 3 (h, features: 32 chunks at O = 128), then
+# the (1, 384) head [h, features] row-major.
+RECON_WIDE_X_COLS = 256
+
+
+def _recon_wide_stream():
+    """[(layer, first output row, rows, first input column)] of K2w's
+    chunks in image order (the kernel reads layer 0's region twice, once
+    per half of layer 1's rows)."""
+    x0 = (0, 1024, 512, 256)           # each layer's first feature column
+    steps = RECON_WIDE_X_COLS // CHUNK_K
+    stream = [(0, 128 * j, 128, 16 * c) for j in range(8)
+              for c in range(steps)]
+    stream += [(1, 256 * hh, 256, 128 * j + 16 * c) for hh in range(2)
+               for j in range(8) for c in range(8)]
+    stream += [(1, 256 * hh, 256, x0[1] + 16 * c) for hh in range(2)
+               for c in range(steps)]
+    stream += [(2, 0, 256, 16 * c) for c in list(range(16, 32))
+               + list(range(16)) + list(range(x0[2] // 16,
+                                               x0[2] // 16 + steps))]
+    stream += [(3, 0, 128, 16 * c) for c in list(range(16))
+               + list(range(x0[3] // 16, x0[3] // 16 + steps))]
+    return stream
+
+
+RECON_WIDE_HEAD_ELEM = sum(o * CHUNK_K for _, _, o, _ in
+                           _recon_wide_stream())                 # 1,179,648
+RECON_WIDE_IMAGE_ELEMS = RECON_WIDE_HEAD_ELEM + 128 + RECON_WIDE_X_COLS
+# the f32 biases, each padded to 4 floats, then z's weights the same way
+RECON_WIDE_BIAS_FLOATS = sum(-(-o // _BIAS_ALIGN) * _BIAS_ALIGN
+                             for o, _ in RECON_WIDE_SHAPES)      # 1,924
+
+
+def recon_wide_weight_image(packed: Sequence[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2w's packed weights (pack_recon_weights of PIFu's decoder) as the
+    buffers its kernel reads (plain PyTorch, any device): (image, vecs),
+    1-D bf16 and f32. ``image`` holds the chunks of _recon_wide_stream in
+    order, then the head's h and feature weights; ``vecs`` the five f32
+    biases, each padded to 4 floats, then each layer's weights of z (its
+    last input column) as f32, padded the same way."""
+    w = packed[0::2]
+    parts = [w[layer][r0:r0 + o, c0:c0 + CHUNK_K].reshape(o, 2, 8)
+             .permute(1, 0, 2).reshape(-1)
+             for layer, r0, o, c0 in _recon_wide_stream()]
+    parts.append(w[4][0, :-1])
+    return (torch.cat(parts), torch.cat([
+        _padded_biases(packed), _padded_vectors([t[:, -1].float()
+                                                 for t in w])]))
+
+
+def unpack_recon_wide_weight_image(image: torch.Tensor, vecs: torch.Tensor
+                                   ) -> List[torch.Tensor]:
+    """The five (O, I) weights read back from K2w's image and vectors (the
+    inverse of ``recon_wide_weight_image``; z's weights are exact in
+    f32)."""
+    out = [image.new_zeros(s) for s in RECON_WIDE_SHAPES]
+    pos = 0
+    for layer, r0, o, c0 in _recon_wide_stream():
+        out[layer][r0:r0 + o, c0:c0 + CHUNK_K] = (
+            image[pos:pos + o * CHUNK_K].reshape(2, o, 8).permute(1, 0, 2)
+            .reshape(o, CHUNK_K))
+        pos += o * CHUNK_K
+    out[4][0, :-1] = image[pos:]
+    z0 = RECON_WIDE_BIAS_FLOATS
+    for t in out:
+        o = t.shape[0]
+        t[:, -1] = vecs[z0:z0 + o].to(t.dtype)
+        z0 += -(-o // _BIAS_ALIGN) * _BIAS_ALIGN
+    return out
+
+
 # images of the packed sets seen lately: the key names each packed tensor's
 # storage and version, and the entry keeps the tensors alive, so a key
 # cannot come to name other weights
@@ -387,16 +504,23 @@ def _cached_recon_image(packed):
     return _cached_image(recon_weight_image, "recon", tuple(packed), packed)
 
 
+def _cached_recon_wide_image(packed):
+    """``recon_wide_weight_image`` of a packed set, built once per set."""
+    return _cached_image(recon_wide_weight_image, "recon_wide",
+                         tuple(packed), packed)
+
+
 weight_image.builds = 0
 recon_weight_image.builds = 0
+recon_wide_weight_image.builds = 0
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp_min(0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _leaky(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x >= 0, x, 0.02 * x)
+def _leaky(x: torch.Tensor, slope: float = 0.02) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
 
 
 def _dot(w: torch.Tensor, h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -562,6 +686,24 @@ def recon_decode_plain(packed: Sequence[torch.Tensor], feats: torch.Tensor
     return torch.sigmoid(_dot(w[6], h, w[7]))[:, 0]
 
 
+def recon_decode_wide_plain(packed: Sequence[torch.Tensor],
+                            feats: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2w (same arithmetic, any device).
+
+    Args:
+      feats: (N, 257) [pixel-aligned feature (256), z].
+    Returns:
+      (N,) f32 occupancy in [0, 1].
+    """
+    w = packed
+    x = feats.float().to(torch.bfloat16)
+    h = _leaky(_dot(w[0], x, w[1]), 0.01).to(torch.bfloat16)
+    for i in range(1, 4):
+        h = _leaky(_dot(w[2 * i], torch.cat([h, x], dim=-1), w[2 * i + 1]),
+                   0.01).to(torch.bfloat16)
+    return torch.sigmoid(_dot(w[8], torch.cat([h, x], dim=-1), w[9]))[:, 0]
+
+
 def _check_weights(packed: Sequence[torch.Tensor], shapes, device) -> None:
     if len(packed) != 2 * len(shapes):
         raise ValueError(f"expected {2 * len(shapes)} packed tensors, "
@@ -670,30 +812,71 @@ def _recon_launch(packed, feats):
     return out
 
 
+def _recon_wide_launch(packed, feats):
+    dev = feats.device
+    if feats.dim() != 2 or feats.shape[1] != RECON_WIDE_IN_DIM:
+        raise ValueError(f"feats must be (N, {RECON_WIDE_IN_DIM}), got "
+                         f"{tuple(feats.shape)}")
+    n = feats.shape[0]
+    if n * RECON_WIDE_IN_DIM >= 2 ** 31:
+        raise ValueError("too many points for one launch")
+    _check_weights(packed, RECON_WIDE_SHAPES, dev)
+    feats = feats.to(torch.float32).contiguous()
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    launch, err_str = kernels.c_functions(
+        "recon_decode_wide", "recon_decode_wide",
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    image, vecs = _cached_recon_wide_image(packed)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(feats.data_ptr(), n, image.data_ptr(), vecs.data_ptr(),
+                     out.data_ptr(), stream)
+    kernels.raise_on(err, err_str, "recon_decode_wide")
+    recon_decode.wide_launches += 1
+    return out
+
+
 def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
                  ) -> torch.Tensor:
     """ReconNet pixel-aligned occupancy decode (inference).
 
-    CUDA tensors launch the Hopper kernel (counted in
-    ``recon_decode.launches``); CPU tensors run the plain version. Under a
-    tracer, either is a span ``k2`` counting its ``rows``.
+    The packed shapes pick the kernel (RECON_FORMS): AvatarCap's decoder
+    runs on K2, PIFu's on K2w, and any other is a ValueError. CUDA tensors
+    launch the Hopper kernel (counted in ``recon_decode.launches`` and
+    ``recon_decode.wide_launches``); CPU tensors run the plain version.
+    Under a tracer, either is a span ``k2`` or ``k2w`` counting its
+    ``rows``.
 
     Args:
       packed: pack_recon_weights output on the feats' device.
-      feats: (N, 33) [pixel-aligned feature (32), z].
+      feats: (N, 33) [pixel-aligned feature (32), z], or (N, 257) for
+        PIFu's decoder.
     Returns:
       (N,) f32 occupancy in [0, 1].
     """
-    with span("k2"):
+    shapes = _recon_shapes(packed)
+    if shapes not in RECON_FORMS:
+        raise ValueError(f"no kernel runs a decoder of packed shapes "
+                         f"{shapes}; the kernels run {list(RECON_FORMS)}")
+    kernel = RECON_FORMS[shapes][0]
+    with span(kernel):
         count("rows", feats.shape[0])
         if feats.device.type == "cuda":
-            return _recon_launch(packed, feats)
+            return _RECON_RUNS[kernel][0](packed, feats)
         if feats.device.type == "cpu":
-            return recon_decode_plain(packed, feats)
+            return _RECON_RUNS[kernel][1](packed, feats)
     raise ValueError(f"unsupported device {feats.device}")
 
 
+# each ReconNet kernel's launch and plain version, by its span
+_RECON_RUNS = {"k2": (_recon_launch, recon_decode_plain),
+               "k2w": (_recon_wide_launch, recon_decode_wide_plain)}
+
+
 recon_decode.launches = 0
+recon_decode.wide_launches = 0
 
 
 def _check_rays(ro, rd, pf0, pf1, danch, bounds, n_samples):

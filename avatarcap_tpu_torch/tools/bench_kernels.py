@@ -1,10 +1,11 @@
 """Kernel-only times of the port's CUDA kernels on one NVIDIA GPU
 (counterpart of avatarcap_tpu/tools/bench_kernels.py).
 
-K1 (warp_template_query), K2 (recon_decode), K3 (ray_color_query), K4
+K1 (warp_template_query), K2 (recon_decode), K2w (recon_decode on PIFu's
+decoder, csrc/recon_decode_wide.cu; ``k2w``), K3 (ray_color_query), K4
 (template_query) and K5 (offset_query) on seeded random inputs at the
-launch shapes of the full-size capture frame, with random weights at the
-published widths; and the normal-fusion merge (``merge``,
+launch shapes of the full-size capture frame (K2w at K2's), with random
+weights at the published widths; and the normal-fusion merge (``merge``,
 csrc/normal_merge.cu) at the frame's 512^2 and 100 steps on a seeded
 synthetic pair (``merge_inputs``), its row timing the whole call (masks,
 distance transform, kernel, blend) beside the plain path's on the card,
@@ -15,8 +16,9 @@ over the memory rate) and the bound's share of the measured time; and the
 largest difference from the plain PyTorch version on the first
 ``--check`` points (rays) of the launch; and a SHA-1 of the launch's
 outputs, which two trees' runs in one call compare for bit equality. K2's
-row also gives its weight image's bytes and build time, the bytes its
-tiles pull from L2 per launch (tiles x image bytes) and that pull's rate.
+and K2w's rows also give the weight image's bytes and build time, the
+bytes the tiles pull from L2 per launch (tiles x the chunks a tile takes,
+K2w's layer 0 twice) and that pull's rate.
 Prints the card's name and power limit and, last, one JSON line. Raises
 without a CUDA device.
 
@@ -26,7 +28,7 @@ call, would otherwise set the time of so short a launch): on the card's
 132 SMs, equal times up to 132 tiles (one wave) mean that a tile's time
 is set inside its SM, not by the L2 that all SMs share.
 
-Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,merge]
+Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,k2w,merge]
        [--waves]
 """
 
@@ -109,19 +111,21 @@ def outputs_sha1(outputs) -> str:
     return h.hexdigest()
 
 
-def recon_image_record(fq, packed, tiles_by_launch):
-    """K2's weight image: its bytes and build time (CUDA events around one
-    build after a warm-up), and per launch the bytes its tiles pull from
-    L2 (each 128-point tile streams the whole image). None where the
-    package has no K2 image."""
-    build = getattr(fq, "recon_weight_image", None)
+def recon_image_record(fq, packed, tiles_by_launch, kind="recon"):
+    """K2's weight image (``kind="recon_wide"``: K2w's): its bytes and
+    build time (CUDA events around one build after a warm-up), and per
+    launch the bytes its tiles pull from L2 (each 128-point tile streams
+    the whole image; K2w's tiles stream layer 0's 512 KB twice). None
+    where the package has no such image."""
+    build = getattr(fq, f"{kind}_weight_image", None)
     if build is None:
         return None
     image, bias = build(packed)
     ms = event_ms(lambda: build(packed), 1)
     nbytes = image.numel() * image.element_size()
+    pulled = nbytes + (packed[0].numel() * 2 if kind == "recon_wide" else 0)
     return {"bytes": nbytes, "bias_bytes": bias.numel() * 4, "build_ms": ms,
-            "l2_bytes": {k: t * nbytes for k, t in tiles_by_launch.items()}}
+            "l2_bytes": {k: t * pulled for k, t in tiles_by_launch.items()}}
 
 
 def _ray_inputs(n, n_anchors, device, gen):
@@ -260,6 +264,38 @@ def k2_waves(fq, packed, device, gen, reps: int) -> dict:
     return out
 
 
+def k2w_rows(fq, dev, gen, seed: int, reps: int, check: int) -> list:
+    """K2w (recon_decode on PIFu's decoder, random weights from seed + 2)
+    at K2's launch shapes: its rows, as K2's."""
+    from avatarcap_tpu_torch.models.recon import PIFU_SHAPE_NETWORK
+    from avatarcap_tpu_torch.tools.bench_workloads import random_recon
+    with torch.no_grad():
+        pk = fq.pack_recon_weights(random_recon(
+            torch.Generator().manual_seed(seed + 2), **PIFU_SHAPE_NETWORK)
+            .to(dev).image_decoder)
+    image = recon_image_record(
+        fq, pk, {k: -(-n // 128) for k, n in K2_POINTS.items()},
+        kind="recon_wide")
+    rows = []
+    for launch, n in K2_POINTS.items():
+        feats = torch.randn((n, fq.RECON_WIDE_IN_DIM), generator=gen).to(dev)
+        err = _max_err([fq.recon_decode(pk, feats[:check])],
+                       [fq.recon_decode_wide_plain(pk, feats[:check])])
+        ms = event_ms(lambda: fq.recon_decode(pk, feats), reps)
+        # 257 f32 in, 1 f32 out per point
+        rows.append(_row("recon_decode_wide", launch, n, ms,
+                         launch_bound(n, fq.RECON_WIDE_MACS_PER_POINT,
+                                      fq.RECON_WIDE_IN_DIM * 4 + 4,
+                                      _weight_bytes(pk)), err))
+        rows[-1]["sha1"] = outputs_sha1([fq.recon_decode(pk, feats)])
+        l2 = image["l2_bytes"][launch]
+        rows[-1].update(image_bytes=image["bytes"],
+                        image_build_ms=image["build_ms"], l2_bytes=l2,
+                        l2_tb_per_s=l2 / (ms * 1e-3) / 1e12)
+        del feats
+    return rows
+
+
 def bench(only, reps: int, check: int, seed: int, waves: bool = False):
     from avatarcap_tpu_torch.ops import fused_query as fq
     from avatarcap_tpu_torch.pipeline.avatar import pack_fused_query_weights
@@ -339,6 +375,8 @@ def bench(only, reps: int, check: int, seed: int, waves: bool = False):
                                     l2_tb_per_s=l2 / (ms * 1e-3) / 1e12)
             if waves:
                 rows[-1]["waves_ms"] = k2_waves(fq, pk_recon, dev, gen, reps)
+        if "k2w" in only:
+            rows += k2w_rows(fq, dev, gen, seed, reps, check)
         if "k3" in only:
             kw = dict(n_samples=K3_SAMPLES, near=0.98, far=1.05,
                       threshold=0.08)
@@ -368,7 +406,7 @@ def bench(only, reps: int, check: int, seed: int, waves: bool = False):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k1,k2,k3,k4,k5,merge",
+    ap.add_argument("--only", default="k1,k2,k2w,k3,k4,k5,merge",
                     help="comma-separated kernels to run")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--check", type=int, default=65536,

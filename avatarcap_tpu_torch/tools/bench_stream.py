@@ -57,10 +57,14 @@ def _wrappers() -> Dict[str, object]:
 def _zero_launches() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    fq.recon_decode.wide_launches = 0
 
 
 def _launches() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Each kernel's launches since _zero_launches: K1 to K5, the merge,
+    and K2w (``recon_decode.wide_launches``)."""
+    return {**{k: fn.launches for k, fn in _wrappers().items()},
+            "k2w": fq.recon_decode.wide_launches}
 
 
 def _tensors(tree) -> List[torch.Tensor]:

@@ -24,7 +24,7 @@ import json
 import math
 import os
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,10 +187,12 @@ def random_tex_avatar(avatar: GeoTexAvatar,
     return tex.eval()
 
 
-def random_recon(generator: torch.Generator) -> ReconNetwork:
+def random_recon(generator: torch.Generator, **form) -> ReconNetwork:
     """ReconNetwork at its published widths (HGFilter stack 1, depth 4,
     256 channels, GroupNorm(32); the weight-normed 33 -> 512 -> 256 ->
-    128 -> 1 decoder) with every weight drawn from ``generator``:
+    128 -> 1 decoder), or of another ``form`` (ReconNetwork's keywords,
+    e.g. models/recon.PIFU_SHAPE_NETWORK), with every weight drawn from
+    ``generator``:
     LeCun-uniform conv and weight-norm directions with gains equal to
     their norms, GroupNorm scales U(0.8, 1.2), biases U(-0.1, 0.1). The
     decoder head is U(+-0.3) with a zero bias, so the occupancy
@@ -201,7 +203,7 @@ def random_recon(generator: torch.Generator) -> ReconNetwork:
         bound = (3.0 / w[0].numel()) ** 0.5
         w.uniform_(-bound, bound, generator=generator)
 
-    model = ReconNetwork()
+    model = ReconNetwork(**form)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.GroupNorm):
@@ -215,7 +217,7 @@ def random_recon(generator: torch.Generator) -> ReconNetwork:
                 lecun_(m.weight_v)
                 m.weight_g.copy_(m.weight_v.norm(dim=(1, 2), keepdim=True))
                 m.bias.uniform_(-0.1, 0.1, generator=generator)
-        head = model.image_decoder.fc_list[3]
+        head = model.image_decoder.fc_list[-1]
         head.weight.uniform_(-0.3, 0.3, generator=generator)
         head.bias.zero_()
     return model.eval()
@@ -397,17 +399,20 @@ def fit_template_to_body(avatar: GeoTexAvatar, statics: AvatarStatics,
 
 
 def recon_fit_features(recon: ReconNetwork, statics: AvatarStatics,
-                       grid: CaptureGrid, inferred_normal) -> torch.Tensor:
+                       grid: CaptureGrid, inferred_normal,
+                       images: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The decoder's inputs at every grid slot (padding included): the
-    HGFilter features of [inferred_normal, 0], fetched pixel-aligned at
-    the grid nodes, and z - center_z. Returns (N, 33) on the grid's
-    device."""
+    HGFilter features of [inferred_normal, 0] (or of ``images``, (H, W, 6)
+    on the grid's device, e.g. a frame's merged front and avatar back
+    normals), fetched pixel-aligned at the grid nodes, and z - center_z.
+    Returns (N, C + 1) on the grid's device."""
     dev = grid.valid_pts.device
-    normal = torch.as_tensor(np.asarray(inferred_normal, np.float32),
-                             device=dev)
+    if images is None:
+        normal = torch.as_tensor(np.asarray(inferred_normal, np.float32),
+                                 device=dev)
+        images = torch.cat([normal, torch.zeros_like(normal)], -1)
     with torch.no_grad():
-        feat_map = recon.get_feat_maps(
-            torch.cat([normal, torch.zeros_like(normal)], -1)[None])
+        feat_map = recon.get_feat_maps(images[None])
         pf = grid_pose_features(feat_map, statics, grid.vol_res,
                                 grid.valid_idx)
     z = grid.valid_pts[:, 2] - statics.cano_smpl_center[2]
@@ -457,17 +462,19 @@ def fit_recon_decoder(recon: ReconNetwork, statics: AvatarStatics,
                       grid: CaptureGrid, inferred_normal, steps: int = 200,
                       batch: int = 65536, lr: float = 1e-3,
                       wrinkle_amp: float = 0.0,
-                      wrinkle_wavelength: float = 0.045, seed: int = 11):
+                      wrinkle_wavelength: float = 0.045, seed: int = 11,
+                      images: Optional[torch.Tensor] = None):
     """Fit ReconNet's decoder to the toy body's inside flag
     (body_inside_target), in place, on the grid's device: ``steps`` Adam
     steps of the ``image_decoder`` parameters only, each on a batch of
     grid slots (recon_fit_indices from a generator seeded ``seed``) of
-    recon_fit_features. A random decoder's occupancy crosses 0.5 all over
-    the near-body band; the fitted one gives the ReconNet mesh a trained
-    network's statistics with the same per-point decode work. Nothing is
-    read back until the last loss. Returns (recon, final loss)."""
+    recon_fit_features (of ``images`` where given). A random decoder's
+    occupancy crosses 0.5 all over the near-body band; the fitted one
+    gives the ReconNet mesh a trained network's statistics with the same
+    per-point decode work. Nothing is read back until the last loss.
+    Returns (recon, final loss)."""
     dev = grid.valid_pts.device
-    feats = recon_fit_features(recon, statics, grid, inferred_normal)
+    feats = recon_fit_features(recon, statics, grid, inferred_normal, images)
     gen = torch.Generator(device=dev).manual_seed(seed)
     adam = Adam(list(recon.image_decoder.parameters()))
     loss = None

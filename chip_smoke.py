@@ -39,7 +39,18 @@ Phases, each fatal on failure:
      on them and timed, beside its weight image's bytes and build time and
      the bytes its tiles pull from L2; [merge]: the normal-fusion merge's
      kernel at the frame's shapes against its plain version on the card,
-     one launch a call, times and bound; then two timed frames with the
+     one launch a call, times and bound; [pifu]: PIFu's shape network
+     as the ReconNet on the subject's avatar, body and grid, its decoder
+     fitted to the toy body as the subject's is; 8 untextured production
+     frames of distinct poses through StreamingCapture.run_pipelined
+     (lookahead 2), the launch counts set to 0 just before and read just
+     after (16 K1, 16 K2w, no K2, 8 merges), each frame finite with
+     ReconNet triangles; the last frame's merged normals give the inputs
+     of its two K2w (recon_decode on PIFu's decoder,
+     csrc/recon_decode_wide.cu) launches, the coarse band and the refine
+     capacity, on which K2w is held against its plain version and timed
+     as K2 is ([k2w], the kernel table's K2w row); then two timed frames
+     with the
      launch counts read around each (2 K1, 2 K2 and 1 merge launch), whose
      triangle counts are compared (run-to-run drift), two more with
      torch.backends.cudnn.deterministic = True, and the stage times. The
@@ -148,7 +159,8 @@ Phases, each fatal on failure:
      fixed seed on 512^2 crops: seconds per frame; the normal maps finite
      and zero outside the mask, the generator on the card and the CPU
      within 1e-3.
-The kernel table's launches are those of phase 8's pipelined run.
+The kernel table's launches are those of phase 8's pipelined run, and
+K2w's those of phase 5's [pifu] stream of as many frames.
 Prints each kernel's TFLOP/s and the share of its measured time that its
 bound explains, the kernel table as one JSON line, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Writes
@@ -158,6 +170,7 @@ a CUDA device, without the package next to it, or on any failed phase.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -181,6 +194,13 @@ K3_TOL = 2e-2
 K3_MEDIAN_TOL = 1e-4
 # a ray whose color exceeds this carries density somewhere along it
 K3_COLOR_FLOOR = 1e-3
+# PIFu's ReconNet capacities: its fitted field leaves more coarse nodes
+# near 0.5 and more surface than AvatarCap's, which overflow the capture
+# workload's 262,144 refined nodes and 294,912 triangles; these are the
+# capture options of the pifu_sdf configuration
+# (benchmark/configs/pifu_sdf.json)
+PIFU_RECON_CAPACITIES = dict(recon_refine_capacity=2621440,
+                             recon_max_tris=720896, recon_max_active=360448)
 
 
 def _sync(device):
@@ -403,7 +423,6 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
         compute_pose_features, fused_occupancy, query_occupancy_fused)
     from avatarcap_tpu_torch.tools.bench_kernels import event_ms
     pk, st = capture.packed_query, capture.statics
-    wrappers = _wrappers()
     with torch.inference_mode():
         pos_map = torch.as_tensor(item["smpl_pos_map"], device=device)[None]
         feat = compute_pose_features(capture.avatar, pos_map)
@@ -414,13 +433,12 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
                 feat.permute(0, 3, 1, 2), p - st.cano_smpl_center)[0]
 
         _sync(device)
-        for fn in wrappers.values():
-            fn.launches = 0
+        _zero_launches()
         out = query_occupancy_fused(pk, q, feat, st)
         _sync(device)
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = _launches()
         if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
-                        "merge": 0}:
+                        "merge": 0, "k2w": 0}:
             raise AssertionError(f"query_occupancy_fused launched {launches}"
                                  ", expected one K1 launch")
         n = pts.shape[0]
@@ -525,11 +543,17 @@ def _finite(tensors):
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def _wrappers():
-    """The kernels' wrappers, K1 to K5 and the normal-fusion merge, each
-    counting its launches."""
-    from avatarcap_tpu_torch.tools.bench_stream import _wrappers as wrappers
-    return wrappers()
+def _zero_launches():
+    """Set every kernel's launch count to 0 (tools/bench_stream)."""
+    from avatarcap_tpu_torch.tools.bench_stream import _zero_launches as zero
+    zero()
+
+
+def _launches():
+    """Each kernel's launches since _zero_launches: K1 to K5, the
+    normal-fusion merge and K2w."""
+    from avatarcap_tpu_torch.tools.bench_stream import _launches as launches
+    return launches()
 
 
 def run_frame(capture, item, device, w_nerf=False, **frame_kw):
@@ -538,17 +562,23 @@ def run_frame(capture, item, device, w_nerf=False, **frame_kw):
     import torch
     _sync(device)
     torch.cuda.reset_peak_memory_stats(device)
-    for fn in _wrappers().values():
-        fn.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = capture.process_frame(item, w_nerf=w_nerf, **frame_kw)
     _sync(device)
     secs = time.perf_counter() - t0
     out = {"seconds": secs,
-           **{f"{k}_launches": fn.launches for k, fn in _wrappers().items()},
-           "num_tris": int(res["cano_mesh"].num_tris),
-           "overflow": bool(res["overflow"]),
-           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+           **{f"{k}_launches": n for k, n in _launches().items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           **frame_record(res)}
+    return res, out
+
+
+def frame_record(res):
+    """A frame's triangle counts, overflow and mean colors; its meshes,
+    images and colors must be finite, with triangles."""
+    out = {"num_tris": int(res["cano_mesh"].num_tris),
+           "overflow": bool(res["overflow"])}
     meshes = [res["cano_mesh"], res["live_mesh"]]
     images = [res["front_avatar_normal"], res["back_avatar_normal"],
               *res["cano_phong"]]
@@ -573,7 +603,7 @@ def run_frame(capture, item, device, w_nerf=False, **frame_kw):
         raise AssertionError("frame outputs are not finite")
     if out["num_tris"] <= 0:
         raise AssertionError("frame produced no triangles")
-    return res, out
+    return out
 
 
 def stage_times(capture, item, device, w_nerf=False, **frame_kw):
@@ -584,11 +614,12 @@ def stage_times(capture, item, device, w_nerf=False, **frame_kw):
     return timer.times
 
 
-def k2_launch_inputs(capture, res):
-    """The (N, 33) inputs of the production frame's two K2 launches
-    (coarse, refine), recorded through the same recon_volume the frame
-    runs, from that frame's merged normals (this pass launches the kernel;
-    it is not the counted frame)."""
+def recon_launch_inputs(capture, res):
+    """The inputs of the production frame's two ReconNet decode launches
+    (coarse, refine; (N, 33) rows for K2, (N, 257) for K2w), recorded
+    through the same recon_volume the frame runs, from that frame's
+    merged normals (this pass launches the kernel; it is not the counted
+    frame)."""
     import torch
     from avatarcap_tpu_torch.ops.fused_query import recon_decode
     recorded = []
@@ -604,54 +635,64 @@ def k2_launch_inputs(capture, res):
     return recorded
 
 
-def check_k2(capture, recorded, device):
-    """K2 against its plain version on both launches' inputs; times
-    kernel, plain and bound."""
+def check_recon(capture, recorded, device):
+    """The capture's ReconNet kernel (K2 or K2w, by its packed shapes)
+    against its plain version on both launches' inputs, at the same
+    tolerances (the same arithmetic contract at either's widths); times
+    kernel, plain and bound. Returns the kernel-table record (the coarse
+    launch, the larger of the two, with the refine launch beside it)."""
     import torch
-    from avatarcap_tpu_torch.ops.fused_query import (
-        RECON_MACS_PER_POINT, recon_decode, recon_decode_plain)
+    from avatarcap_tpu_torch.ops import fused_query as fq
+    from avatarcap_tpu_torch.tools.bench_kernels import recon_image_record
     pk = capture.packed_recon
+    kernel = fq.RECON_FORMS[tuple(tuple(w.shape) for w in pk[0::2])][0]
+    wide = kernel == "k2w"
+    plain = fq.recon_decode_wide_plain if wide else fq.recon_decode_plain
     err, median = 0.0, 0.0
     for feats in recorded:
         with torch.inference_mode():
-            got = recon_decode(pk, feats)
-            ref = recon_decode_plain(pk, feats)
+            got = fq.recon_decode(pk, feats)
+            ref = plain(pk, feats)
         _sync(device)
         if not _finite([got]):
-            raise AssertionError("K2 output is not finite")
+            raise AssertionError(f"{kernel.upper()} output is not finite")
         d = (got - ref).abs()
         err = max(err, float(d.max()))
         median = max(median, float(d.median()))
+        del got, ref, d
     if err > K2_TOL or median > K2_MEDIAN_TOL:
         raise AssertionError(
-            f"K2 disagrees with its plain version: max {err}, median "
-            f"{median} (tolerance {K2_TOL}, median {K2_MEDIAN_TOL})")
+            f"{kernel.upper()} disagrees with its plain version: max {err}, "
+            f"median {median} (tolerance {K2_TOL}, median {K2_MEDIAN_TOL})")
     weight_bytes = _weight_bytes(pk)
+    in_dim = fq.RECON_WIDE_IN_DIM if wide else fq.RECON_IN_DIM
+    macs = fq.RECON_WIDE_MACS_PER_POINT if wide else fq.RECON_MACS_PER_POINT
 
     def measure(feats):
-        # 33 f32 in, 1 f32 out per point
-        return measure_launch(lambda: recon_decode(pk, feats),
-                              lambda: recon_decode_plain(pk, feats),
-                              feats.shape[0], RECON_MACS_PER_POINT,
-                              33 * 4 + 4, weight_bytes, device)
+        # in_dim f32 in, 1 f32 out per point
+        return measure_launch(lambda: fq.recon_decode(pk, feats),
+                              lambda: plain(pk, feats), feats.shape[0],
+                              macs, in_dim * 4 + 4, weight_bytes, device,
+                              plain_reps=1 if wide else 3)
 
     coarse = measure(recorded[0])
     refine = measure(recorded[-1])
-    from avatarcap_tpu_torch.ops import fused_query as fq
-    from avatarcap_tpu_torch.tools.bench_kernels import recon_image_record
     image = recon_image_record(fq, pk, {"coarse": -(-coarse["points"] // 128),
-                                        "refine": -(-refine["points"] // 128)})
+                                        "refine": -(-refine["points"] // 128)},
+                               kind="recon_wide" if wide else "recon")
     for launch, rec in (("coarse", coarse), ("refine", refine)):
         rec["l2_bytes"] = image["l2_bytes"][launch]
         rec["l2_tb_per_s"] = rec["l2_bytes"] / (rec["ms"] * 1e-3) / 1e12
-    print(f"[k2] weight image {image['bytes']} B + {image['bias_bytes']} B "
-          f"of biases, built in {image['build_ms']:.3f} ms; L2 pull "
+    print(f"[{kernel}] weight image {image['bytes']} B + "
+          f"{image['bias_bytes']} B of vectors, built in "
+          f"{image['build_ms']:.3f} ms; L2 pull "
           f"{coarse['l2_tb_per_s']:.2f} TB/s coarse, "
           f"{refine['l2_tb_per_s']:.2f} TB/s refine")
-    # the kernel table reports the coarse launch, the larger of the two
-    return {"name": "recon_decode", "route": "cuda",
-            "source": "avatarcap_tpu_torch/csrc/recon_decode.cu",
-            "replaces": "avatarcap_tpu/ops/pallas_query.py:239",
+    name = "recon_decode_wide" if wide else "recon_decode"
+    return {"name": name, "route": "cuda",
+            "source": f"avatarcap_tpu_torch/csrc/{name}.cu",
+            "replaces": (None if wide
+                         else "avatarcap_tpu/ops/pallas_query.py:239"),
             "max_abs_err": err, "median_abs_err": median,
             "tolerance": {"max": K2_TOL, "median": K2_MEDIAN_TOL},
             **coarse, "library_ms": None, "refine_launch": refine,
@@ -663,9 +704,98 @@ def production_frames(capture, item, recon_kw, device):
     """Phase 5 up to the kernel check: the warm-up frame, K2's inputs and
     its check. Returns the K2 record."""
     res, _ = run_frame(capture, item, device, w_recon=True, **recon_kw)
-    recorded = k2_launch_inputs(capture, res)
+    recorded = recon_launch_inputs(capture, res)
     del res
-    return check_k2(capture, recorded, device)
+    return check_recon(capture, recorded, device)
+
+
+def pifu_phase(capture, item, recon_kw, fit, device, n_frames=8,
+               lookahead=2, decoder_steps=1000):
+    """[pifu]: PIFu's shape network as the ReconNet
+    (models/recon.PIFU_SHAPE_NETWORK) on the fitted subject's avatar, body
+    and grid, its decoder drawn as the subject's (flax_init_) and fitted
+    to the toy body with the subject's wrinkles (fit_recon_decoder,
+    ``decoder_steps`` steps) on the features of the ReconNet input of the
+    subject's production frame (its merged front and avatar back normals,
+    which PIFu's frame shares: no ReconNet feeds them), with
+    PIFU_RECON_CAPACITIES over the subject's capture options. n_frames
+    untextured production frames of distinct poses through
+    StreamingCapture.run_pipelined (lookahead 2) after a warm-up run,
+    with the launch counts set to 0 just before and read just after: 2 K1
+    and 2 K2w launches a frame, no K2; each frame finite, with ReconNet
+    triangles. K2w's inputs from the last frame's normals (the coarse
+    band and the refine capacity) are held against its plain version and
+    timed (check_recon); then no frame may have overflowed. Returns (K2w's
+    kernel record, the phase's record)."""
+    import torch
+    from avatarcap_tpu_torch.models.recon import (PIFU_SHAPE_NETWORK,
+                                                  ReconNetwork)
+    from avatarcap_tpu_torch.parallel import make_mesh
+    from avatarcap_tpu_torch.pipeline.capture import AvatarCapture
+    from avatarcap_tpu_torch.pipeline.streaming import StreamingCapture
+    from avatarcap_tpu_torch.tools.bench_stream import stream_items
+    from avatarcap_tpu_torch.tools.bench_workloads import (fit_recon_decoder,
+                                                           flax_init_)
+    with torch.inference_mode():
+        res = capture.process_frame(item, w_recon=True, w_nerf=False,
+                                    **recon_kw)
+        images = torch.cat([res["front_merged_normal"],
+                            res["back_avatar_normal"]], -1)
+    del res
+    recon = flax_init_(ReconNetwork(**PIFU_SHAPE_NETWORK),
+                       torch.Generator().manual_seed(3)).to(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    _, loss = fit_recon_decoder(recon, capture.statics, capture.grid,
+                                recon_kw["inferred_normal"],
+                                steps=decoder_steps,
+                                wrinkle_amp=fit["wrinkle_amp"],
+                                images=images.clone())
+    rec = {"decoder_fit_seconds": time.perf_counter() - t0,
+           "decoder_steps": decoder_steps, "decoder_loss": loss,
+           "frames": n_frames, "lookahead": lookahead}
+    print(f"[pifu] decoder fit: {decoder_steps} steps, loss {loss:.4g}, "
+          f"{rec['decoder_fit_seconds']:.1f} s")
+    pifu = AvatarCapture(capture.avatar, capture.statics, capture.grid,
+                         recon=recon.eval(),
+                         options=dataclasses.replace(
+                             capture.opt, **PIFU_RECON_CAPACITIES),
+                         device=device)
+    items = stream_items(item, n_frames)
+    normals = [recon_kw["inferred_normal"]] * n_frames
+    sc = StreamingCapture(
+        pifu, make_mesh([device]), camera=recon_kw["camera"],
+        image_size=recon_kw["inferred_normal"].shape[:2],
+        neck_vertex_idx=recon_kw["neck_vertex_idx"], w_recon=True,
+        w_nerf=False)
+    sc.run_pipelined(items, normals, lookahead=lookahead)       # warm-up
+    _sync(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = sc.run_pipelined(items, normals, lookahead=lookahead)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    rec.update(seconds=secs, frames_per_s=n_frames / secs,
+               launches=_launches(),
+               frame=[frame_record(r) for r in results])
+    want = {"k1": 2 * n_frames, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
+            "merge": n_frames, "k2w": 2 * n_frames}
+    if rec["launches"] != want:
+        raise AssertionError(f"the PIFu stream launched {rec['launches']}, "
+                             f"expected {want}")
+    recorded = recon_launch_inputs(pifu, results[-1])
+    del results
+    rec["rows"] = [int(f.shape[0]) for f in recorded]
+    k2w = check_recon(pifu, recorded, device)
+    del recorded, sc, pifu
+    k2w["launches"] = rec["launches"]["k2w"]
+    print(f"[pifu] {n_frames} frames at {rec['frames_per_s']:.3f} frames/s, "
+          f"launches {rec['launches']}, decode rows {rec['rows']}, frames "
+          f"{rec['frame']}")
+    print(f"[k2w] {json.dumps(k2w)}")
+    if any(f["overflow"] or f["recon_overflow"] for f in rec["frame"]):
+        raise AssertionError(f"a PIFu frame overflowed: {rec['frame']}")
+    return k2w, rec
 
 
 def merge_phase(capture, device):
@@ -1101,7 +1231,8 @@ def stream_phase(capture, item, recon_kw):
           f"{rec['distinct_poses']}; busy share of the card over the "
           f"profiled pipelined run {prof['busy_share']} ({prof['kernels']} "
           f"kernels, {prof['profiled_s']:.2f} s profiled)")
-    want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0, "merge": 8}
+    want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0, "merge": 8,
+            "k2w": 0}
     if rec["pipelined"]["launches"] != want:
         raise AssertionError(f"the pipelined stream launched "
                              f"{rec['pipelined']['launches']}, expected "
@@ -1340,13 +1471,12 @@ def cli_stream_run(device, cfg, flags, outputs):
     path = os.path.join(CLI_DIR, "config_stream.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    for fn in _wrappers().values():
-        fn.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     records = cli.main(["-c", path] + flags + ["--stream", "2"])
     _sync(device)
     rec = {"test_cli_s": time.perf_counter() - t0, "frames": records,
-           "launches": {k: fn.launches for k, fn in _wrappers().items()}}
+           "launches": _launches()}
     if (len(records), rec["launches"]["k1"], rec["launches"]["k2"],
             rec["launches"]["k3"]) != (2, 4, 4, 4):
         raise AssertionError(f"the streamed CLI's {len(records)} frames "
@@ -1462,13 +1592,12 @@ def cli_phase(device, network_dirs):
 
     flags = ["-m", "test", "--nerf", "--save-avatar-mesh",
              "--save-final-mesh"]
-    for fn in _wrappers().values():
-        fn.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     records = cli.main(["-c", cfg_path] + flags)
     _sync(device)
     rec["test_cli_s"] = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in _wrappers().items()}
+    launches = _launches()
     frame = records[0]
     rec.update(frame=frame, frames=records, launches=launches)
     if (len(records), launches["k1"], launches["k2"],
@@ -1645,6 +1774,8 @@ def main() -> int:
 
     k2 = production_frames(capture, item, recon_kw, device)
     print(f"[k2] {json.dumps(k2)}")
+    k2w, record["pifu"] = pifu_phase(capture, item, recon_kw, info["fit"],
+                                     device)
     merge = merge_phase(capture, device)
     print(f"[merge] {json.dumps(merge)}")
     frame_r = timed_production_frames(capture, item, recon_kw, device)
@@ -1689,6 +1820,9 @@ def main() -> int:
         # textured production frames; the single frame's beside them
         kern["launches"] = record["stream"]["pipelined"]["launches"][name]
         kern["launches_textured_frame"] = frame_n[f"{name}_launches"]
+    # K2w's launches are the PIFu stream's ([pifu], as many frames)
+    k2w["launches_textured_frame"] = frame_n["k2w_launches"]
+    kerns["k2w"] = k2w
 
     record["small_frame"] = check_small_frame(device)
     print(f"[small] {json.dumps(record['small_frame'])}")

@@ -47,6 +47,17 @@ def packed_recon(card):
         return pack_recon_weights(model.image_decoder)
 
 
+@pytest.fixture(scope="module")
+def packed_recon_wide(card):
+    from avatarcap_tpu_torch.models.recon import PIFU_SHAPE_NETWORK
+    from avatarcap_tpu_torch.ops.fused_query import pack_recon_weights
+    from avatarcap_tpu_torch.tools.bench_workloads import random_recon
+    model = random_recon(torch.Generator().manual_seed(0),
+                         **PIFU_SHAPE_NETWORK).to(card)
+    with torch.no_grad():
+        return pack_recon_weights(model.image_decoder)
+
+
 def _inputs(n, device, seed=0):
     gen = torch.Generator().manual_seed(seed)
     pts = torch.rand((n, 3), generator=gen) * 1.6 - 0.8
@@ -229,6 +240,56 @@ def test_k2_empty_and_invalid_inputs(card, packed_recon):
         recon_decode(packed_recon, feats[:, :32])
     with pytest.raises(ValueError):
         recon_decode(tuple(t.float() for t in packed_recon), feats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 128, 129, 300, 5000, 200003])
+def test_k2w_kernel_matches_plain(card, packed_recon_wide, n):
+    """K2w (PIFu's decoder) against its plain version at K2's tolerances:
+    the same contract (bf16 operands, f32 sums in another order, so an
+    activation's bf16 rounding can flip) over one tile, a tile and a
+    point, ragged and large ragged counts; only K2w launches."""
+    from avatarcap_tpu_torch.ops.fused_query import (recon_decode,
+                                                     recon_decode_wide_plain)
+    gen = torch.Generator().manual_seed(n)
+    feats = torch.randn((n, 257), generator=gen).to(card)
+    before = (recon_decode.launches, recon_decode.wide_launches)
+    got = recon_decode(packed_recon_wide, feats)
+    torch.cuda.synchronize()
+    assert (recon_decode.launches, recon_decode.wide_launches) == (
+        before[0], before[1] + 1)
+    ref = recon_decode_wide_plain(packed_recon_wide, feats)
+    assert got.shape == (n,) and got.device.type == "cuda"
+    torch.testing.assert_close(got, ref, atol=K2_ATOL, rtol=0)
+    assert float((got - ref).abs().median()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_k2w_repeats_bit_for_bit(card, packed_recon_wide):
+    """Every K2w launch on the same inputs gives the same bits (a race in
+    the ring or on the h2 panel would not), over several waves."""
+    from avatarcap_tpu_torch.ops.fused_query import recon_decode
+    feats = torch.randn((200000, 257),
+                        generator=torch.Generator().manual_seed(6)).to(card)
+    first = recon_decode(packed_recon_wide, feats)
+    for _ in range(3):
+        assert torch.equal(recon_decode(packed_recon_wide, feats), first)
+
+
+@pytest.mark.cuda
+def test_k2w_empty_and_invalid_inputs(card, packed_recon_wide):
+    from avatarcap_tpu_torch.ops.fused_query import recon_decode
+    before = recon_decode.wide_launches
+    assert recon_decode(packed_recon_wide,
+                        torch.zeros((0, 257), device=card)).shape == (0,)
+    assert recon_decode.wide_launches == before
+    feats = torch.randn((10, 257), device=card)
+    with pytest.raises(ValueError):              # weights on another device
+        recon_decode(tuple(t.cpu() for t in packed_recon_wide), feats)
+    with pytest.raises(ValueError):
+        recon_decode(packed_recon_wide, feats[:, :33])
+    with pytest.raises(ValueError):
+        recon_decode(tuple(t.float() for t in packed_recon_wide), feats)
 
 
 @pytest.mark.cuda
