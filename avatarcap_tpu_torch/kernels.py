@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 SOURCES = ("warp_template_query", "recon_decode", "ray_color_query",
-           "template_offset_query", "normal_merge", "recon_decode_wide")
+           "template_offset_query", "normal_merge", "recon_decode_wide",
+           "nearest_vertex")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

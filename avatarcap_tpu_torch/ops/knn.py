@@ -2,16 +2,20 @@
 ``knn``, ``knn_gather``, ``approx_lbs_weights`` and the near-body distance
 volume), and ``knn_chunk``, the query chunk that bounds a distance tile.
 Distances are squared L2, computed as |q|^2 - 2 q.v + |v|^2 with one f32
-matmul per query chunk.
+matmul per query chunk; on float32 CUDA tensors the nearest one (k = 1)
+comes from one launch of csrc/nearest_vertex.cu instead, which writes no
+tile and repeats that arithmetic's rounding (``nearest_vertex``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from avatarcap_tpu_torch.ops.volume_render import linspace01
-from avatarcap_tpu_torch.utils.timers import span
+from avatarcap_tpu_torch.utils.timers import count, live_rows, span
 
 
 # Entries of the (rows, M) float32 distance tile that callers of knn size
@@ -27,6 +31,74 @@ def knn_chunk(m: int, cap: int = 65536) -> int:
     return max(1, min(cap, KNN_TILE // max(1, m)))
 
 
+def nearest_vertex(queries: torch.Tensor, database: torch.Tensor):
+    """The nearest database point of each query, in one launch of
+    ``csrc/nearest_vertex.cu``: knn's k = 1 on float32 CUDA tensors.
+
+    The database goes to the kernel as (x, y, z, |v|^2) rows and each
+    query with its |q|^2, both computed here as knn's plain path computes
+    them; the kernel repeats that path's rounding of the product and the
+    sums, so the distances are its bits and the index is its index (the
+    first of equal minima). Nothing synchronises; no gradient flows (the
+    JAX package's knn stops them too). Counted in
+    ``nearest_vertex.launches``; under a tracer the launch is a span
+    ``knn_kernel`` whose ``rows`` are the N queries.
+
+    Args:
+      queries: (N, 3) float32, contiguous, on a CUDA device.
+      database: (M, 3), the same, M >= 1, on the same device.
+    Returns:
+      d2 (N, 1) float32 squared distances, clamped at 0; idx (N, 1) int64.
+    """
+    from avatarcap_tpu_torch import kernels
+    named = (("queries", queries), ("database", database))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}: the kernel takes float32")
+        if t.dim() != 2 or t.shape[1] != 3:
+            raise ValueError(f"{name} must be (rows, 3), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} on {t.device}: the kernel takes CUDA "
+                             "tensors")
+    if database.device != queries.device:
+        raise ValueError(f"database on {database.device}, queries on "
+                         f"{queries.device}")
+    n, m = queries.shape[0], database.shape[0]
+    if m == 0 or m >= 2 ** 31:
+        raise ValueError(f"database of {m} points out of the kernel's range")
+    dev = queries.device
+    d2 = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, 1), dtype=torch.int64, device=dev)
+    if n == 0:
+        return d2, idx
+    q, db = queries.detach(), database.detach()
+    q_sq = (q * q).sum(-1)
+    rows = torch.cat([db, (db * db).sum(-1)[:, None]], 1)
+    launch, err_str = kernels.c_functions(
+        "nearest_vertex", "nearest_vertex",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p])
+    # every row is live; a scope of its own leaves an outer scope's rows
+    # to the kernels they count
+    with live_rows(n), span("knn_kernel"):
+        count("rows", n)
+        with torch.cuda.device(dev):
+            err = launch(q.data_ptr(), q_sq.data_ptr(), n, rows.data_ptr(), m,
+                         d2.data_ptr(), idx.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    kernels.raise_on(err, err_str, "nearest_vertex")
+    nearest_vertex.launches += 1
+    return d2, idx
+
+
+nearest_vertex.launches = 0
+
+
 def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
         chunk: int = 16384):
     """K nearest database points of each query.
@@ -35,23 +107,38 @@ def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
       queries: (N, 3); database: (M, 3).
     Returns:
       dists (N, k) squared distances, ascending; idx (N, k) int64.
-    Under a tracer (utils/timers) the call is a span ``knn``.
+    Under a tracer (utils/timers) the call is a span ``knn``. With k = 1
+    on float32 CUDA tensors the answer is one launch of
+    ``nearest_vertex`` (knn_plain's bits; ``chunk`` then has no effect);
+    otherwise knn_plain.
     """
     with span("knn"):
-        db_sq = (database * database).sum(-1)
-        dists, idxs = [], []
-        for s in range(0, queries.shape[0], chunk):
-            q = queries[s:s + chunk]
-            d2 = ((q * q).sum(-1, keepdim=True) - 2.0 * (q @ database.T)
-                  + db_sq[None, :])
-            if k == 1:
-                d, i = d2.min(dim=-1, keepdim=True)
-            else:
-                neg, i = torch.topk(-d2, k, dim=-1)
-                d = -neg
-            dists.append(d.clamp_min(0.0))
-            idxs.append(i)
-        return torch.cat(dists), torch.cat(idxs)
+        if (k == 1 and queries.is_cuda and database.is_cuda
+                and queries.dtype == database.dtype == torch.float32):
+            return nearest_vertex(queries.contiguous(),
+                                  database.contiguous())
+        return knn_plain(queries, database, k, chunk)
+
+
+def knn_plain(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
+              chunk: int = 16384):
+    """knn in PyTorch on any device: every ``chunk`` queries make a
+    (chunk, M) distance tile, one product and three elementwise passes,
+    then its min (k = 1) or top-k. The chunk changes no result."""
+    db_sq = (database * database).sum(-1)
+    dists, idxs = [], []
+    for s in range(0, queries.shape[0], chunk):
+        q = queries[s:s + chunk]
+        d2 = ((q * q).sum(-1, keepdim=True) - 2.0 * (q @ database.T)
+              + db_sq[None, :])
+        if k == 1:
+            d, i = d2.min(dim=-1, keepdim=True)
+        else:
+            neg, i = torch.topk(-d2, k, dim=-1)
+            d = -neg
+        dists.append(d.clamp_min(0.0))
+        idxs.append(i)
+    return torch.cat(dists), torch.cat(idxs)
 
 
 def knn_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@ K1 (warp_template_query), K2 (recon_decode), K2w (recon_decode on PIFu's
 decoder, csrc/recon_decode_wide.cu; ``k2w``), K3 (ray_color_query), K4
 (template_query) and K5 (offset_query) on seeded random inputs at the
 launch shapes of the full-size capture frame (K2w at K2's), with random
-weights at the published widths; and the normal-fusion merge (``merge``,
+weights at the published widths; the nearest-vertex distance (``knn``,
+csrc/nearest_vertex.cu) at the textured frame's two anchor launches and a
+train item's, against the toy body, beside knn_plain on the card at the
+caller's chunk and the float32 issue bound; and the normal-fusion merge (``merge``,
 csrc/normal_merge.cu) at the frame's 512^2 and 100 steps on a seeded
 synthetic pair (``merge_inputs``), its row timing the whole call (masks,
 distance transform, kernel, blend) beside the plain path's on the card,
@@ -28,7 +31,7 @@ call, would otherwise set the time of so short a launch): on the card's
 132 SMs, equal times up to 132 tiles (one wave) mean that a tile's time
 is set inside its SM, not by the L2 that all SMs share.
 
-Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,k2w,merge]
+Usage: python -m avatarcap_tpu_torch.tools.bench_kernels [--only k1,knn,merge]
        [--waves]
 """
 
@@ -54,6 +57,17 @@ K3_RAYS = {"avatar": 294912, "recon": 131072}
 K3_SAMPLES, K3_ANCHORS = 64, 4
 K45_POINTS = 1155072
 MERGE_SIDE, MERGE_ITERS = 512, 100
+# nearest_vertex's queries: the textured frame's anchors (4 a unique ray of
+# the avatar soup, 294,912, and of ReconNet's, 360,448) and a train item's
+# posed samples; each launch at its caller's knn_plain chunk
+KNN_QUERIES = {"frame_avatar": (1179648, 65536),
+               "frame_recon": (1441792, 65536),
+               "train_item": (65536, 16384)}
+# H100 SXM float32 lanes: 132 SMs x 128 at the 1,980 MHz boost clock
+# (67 TFLOP/s counts an FMA as two); a pair takes 6 at the least: q.v's
+# multiply and two FMAs, the FMA with |q|^2, the add of |v|^2, a minimum
+PEAK_F32_LANE_OPS = 132 * 128 * 1.98e9
+KNN_OPS_PER_PAIR = 6
 # the merge kernel against its plain version (merge_agreement)
 MERGE_TOL, MERGE_SHARE = 1e-3, 0.99
 
@@ -234,6 +248,49 @@ def merge_row(dev, seed: int, reps: int, side: int = MERGE_SIDE,
             "sha1": outputs_sha1([got])}
 
 
+def knn_agreement(d, i, d_ref, i_ref) -> dict:
+    """nearest_vertex's outputs (d, i) against knn_plain's on the same
+    queries: the d2 rows whose bits differ, the indices that differ (0
+    and 0: the kernel repeats the plain path's rounding and keeps the
+    first index of a minimum, as its min does) and the largest |d - d_ref|."""
+    return {"max_abs_err": float((d - d_ref).abs().max()) if d.numel()
+            else 0.0,
+            "d2_bits_differ": int((d.view(torch.int32)
+                                   != d_ref.view(torch.int32)).sum()),
+            "idx_differ": int((i != i_ref).sum())}
+
+
+def knn_rows(dev, seed: int, reps: int) -> list:
+    """nearest_vertex at KNN_QUERIES' launches against the toy body: ms
+    (CUDA events), knn_plain's ms on the card at the caller's chunk, the
+    bound (pairs x KNN_OPS_PER_PAIR over the float32 lanes' rate),
+    knn_agreement over every row of the launch, and a SHA-1 of its
+    outputs. Queries lie within a few cm of the body's vertices, as the
+    anchors do."""
+    from avatarcap_tpu_torch.ops import knn as K
+    from avatarcap_tpu_torch.tools.bench_workloads import toy_avatar_statics
+    v = toy_avatar_statics(dense=True, device=dev)[1].cano_smpl_vertices
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for launch, (n, chunk) in KNN_QUERIES.items():
+        pick = torch.randint(0, v.shape[0], (n,), generator=gen)
+        q = (v[pick.to(dev)]
+             + (torch.randn((n, 3), generator=gen) * 0.03).to(dev))
+        d, i = K.nearest_vertex(q, v)
+        agree = knn_agreement(d, i, *K.knn_plain(q, v, 1, chunk))
+        pairs = n * v.shape[0]
+        ms = event_ms(lambda: K.nearest_vertex(q, v), reps)
+        bound = pairs * KNN_OPS_PER_PAIR / PEAK_F32_LANE_OPS * 1e3
+        rows.append({
+            "name": "nearest_vertex", "launch": launch, "points": n,
+            "vertices": v.shape[0], "ms": ms, "bound_ms": bound,
+            "bound_by": "float32 issue", "share_of_bound": bound / ms,
+            "plain_ms": event_ms(lambda: K.knn_plain(q, v, 1, chunk), 1),
+            **agree, "sha1": outputs_sha1([d, i])})
+        del q, d, i
+    return rows
+
+
 def graph_ms(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps launches captured in one CUDA
     graph and replayed (no host time between launches), after a warm-up."""
@@ -399,6 +456,8 @@ def bench(only, reps: int, check: int, seed: int, waves: bool = False):
                                  err))
                 rows[-1]["sha1"] = outputs_sha1(
                     [fq.ray_color_query(off, tpl, *rays, **kw)])
+        if "knn" in only:
+            rows += knn_rows(dev, seed, reps)
         if "merge" in only:
             rows.append(merge_row(dev, seed, reps))
     return rows
@@ -406,7 +465,7 @@ def bench(only, reps: int, check: int, seed: int, waves: bool = False):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k1,k2,k2w,k3,k4,k5,merge",
+    ap.add_argument("--only", default="k1,k2,k2w,k3,k4,k5,knn,merge",
                     help="comma-separated kernels to run")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--check", type=int, default=65536,
@@ -435,6 +494,14 @@ def main(argv=None) -> int:
                   f"({100 * r['share_within_1e-4']:.3f}% within 1e-4; "
                   f"{'equal bits' if r['bitwise'] else 'not bitwise'})  "
                   f"sha1 {r['sha1'][:12]}")
+            continue
+        if r["name"] == "nearest_vertex":
+            print(f"{r['name']:>20} {r['launch']:>12} {r['points']:>8} x "
+                  f"{r['vertices']}  {r['ms']:8.3f} ms  bound "
+                  f"{r['bound_ms']:.3f} ms ({100 * r['share_of_bound']:4.1f}%"
+                  f" of the float32 issue rate)  plain {r['plain_ms']:9.3f} "
+                  f"ms  d2 bits differ {r['d2_bits_differ']}, idx differ "
+                  f"{r['idx_differ']}  sha1 {r['sha1'][:12]}")
             continue
         l2 = (f"  L2 {r['l2_tb_per_s']:.2f} TB/s" if "l2_tb_per_s" in r
               else "")

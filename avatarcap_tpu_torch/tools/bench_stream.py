@@ -37,6 +37,7 @@ import torch
 
 from avatarcap_tpu_torch.fusion.normal_fusion import merge_normal_images
 from avatarcap_tpu_torch.ops import fused_query as fq
+from avatarcap_tpu_torch.ops import knn as knn_ops
 from avatarcap_tpu_torch.tools.bench_kernels import outputs_sha1
 
 FORMS = {"avatar_only": dict(w_recon=False, w_nerf=False),
@@ -47,11 +48,12 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def _wrappers() -> Dict[str, object]:
-    """The kernels' wrappers, K1 to K5 and the normal-fusion merge, each
-    counting its launches."""
+    """The kernels' wrappers, K1 to K5, the normal-fusion merge and the
+    nearest-vertex distance, each counting its launches."""
     return {"k1": fq.warp_template_query, "k2": fq.recon_decode,
             "k3": fq.ray_color_query, "k4": fq.template_query,
-            "k5": fq.offset_query, "merge": merge_normal_images}
+            "k5": fq.offset_query, "merge": merge_normal_images,
+            "knn": knn_ops.nearest_vertex}
 
 
 def _zero_launches() -> None:
@@ -62,7 +64,8 @@ def _zero_launches() -> None:
 
 def _launches() -> Dict[str, int]:
     """Each kernel's launches since _zero_launches: K1 to K5, the merge,
-    and K2w (``recon_decode.wide_launches``)."""
+    the nearest-vertex distance, and K2w
+    (``recon_decode.wide_launches``)."""
     return {**{k: fn.launches for k, fn in _wrappers().items()},
             "k2w": fq.recon_decode.wide_launches}
 

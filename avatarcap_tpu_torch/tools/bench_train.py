@@ -8,8 +8,10 @@ vertices) driven through the port's training entry points, and checked.
   same batch at lrs [1e-3, 1e-4], each between two synchronisations:
   median and min ms, points per second (ray samples + geometry points),
   peak device memory, the five losses of the first and the last step
-  (finite; the total must fall), and the step's multiply-adds with the
-  bound they set at the card's float32 peak.
+  (finite; the total must fall), the step's multiply-adds with the
+  bound they set at the card's float32 peak, and the kernels' launches
+  over the steps (tools/bench_stream's count; on the card the
+  nearest-vertex kernel's must be one an item, inverse skinning's).
 - The synchronised stage times of one step.
 - The epoch-0 policy: one step at lrs [1e-3, 0] leaves every warp-field
   parameter's bits as they were, moves every template parameter and the
@@ -158,13 +160,17 @@ def full_width_steps(env, device, n_steps: int) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     state, m = trainer.train_step(state, batch, LRS, generator=gen)
     first = {k: float(v) for k, v in m.items()}
+    from avatarcap_tpu_torch.tools.bench_stream import (_launches,
+                                                         _zero_launches)
     ms = []
+    _zero_launches()
     for _ in range(n_steps):
         _sync(device)
         t0 = time.perf_counter()
         state, m = trainer.train_step(state, batch, LRS, generator=gen)
         _sync(device)
         ms.append(1e3 * (time.perf_counter() - t0))
+    launches = _launches()
     last = {k: float(v) for k, v in m.items()}
     env["state"] = state
     macs = step_macs(state.model, batch, trainer.n_samples)
@@ -173,7 +179,8 @@ def full_width_steps(env, device, n_steps: int) -> dict:
            "points_per_s": macs["points"] / (median * 1e-3),
            "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                            if device.type == "cuda" else None),
-           "losses_first": first, "losses_last": last, **macs,
+           "losses_first": first, "losses_last": last,
+           "launches": launches, **macs,
            "bound_ms": 2 * macs["step_macs"] / PEAK_F32_FLOPS * 1e3,
            "tflops": 2 * macs["step_macs"] / (median * 1e-3) / 1e12}
     if not all(np.isfinite(list(first.values()) + list(last.values()))):
@@ -182,6 +189,11 @@ def full_width_steps(env, device, n_steps: int) -> dict:
         raise AssertionError("the total loss did not fall over the steps: "
                              f"{first['total_loss']} -> "
                              f"{last['total_loss']}")
+    items = batch["live_smpl_v"].shape[0]
+    if device.type == "cuda" and launches["knn"] != n_steps * items:
+        raise AssertionError(f"{n_steps} steps of {items} items launched the "
+                             f"nearest-vertex kernel {launches['knn']} "
+                             "times, expected one an item")
     return rec
 
 

@@ -68,6 +68,16 @@ Phases, each fatal on failure:
      timed frames with the launch counts read around each (2 K1, 2 K2, 2
      K3 and 1 merge launch), the stage times, and one avatar-only textured
      frame (2 K1, 1 K3, no merge);
+     [knn]: the nearest-vertex distance's kernel
+     (csrc/nearest_vertex.cu) on the inputs of the textured production
+     frame's two anchor launches, recorded from its color stages, and on
+     seeded launches of their sizes (1,179,648 and 1,441,792 queries) and
+     a train item's (65,536) against the toy body: every row's outputs
+     must be knn_plain's bits; timed beside knn_plain on the card and the
+     float32 issue bound. Its launches are counted with the other
+     kernels': 2 a textured production frame, 1 an avatar-only textured
+     frame, 0 in the frames without color and in the PIFu stream, one a
+     train item;
      [occupancy]: the fitted subject's avatar weights in
      GeoTexAvatar(if_type="occupancy") at iso_value 0.5 (sigmoid(x) >= 0.5
      iff x >= 0: the SDF frame's surface), through a warm-up and two timed
@@ -438,7 +448,7 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
         _sync(device)
         launches = _launches()
         if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
-                        "merge": 0, "k2w": 0}:
+                        "merge": 0, "knn": 0, "k2w": 0}:
             raise AssertionError(f"query_occupancy_fused launched {launches}"
                                  ", expected one K1 launch")
         n = pts.shape[0]
@@ -551,7 +561,7 @@ def _zero_launches():
 
 def _launches():
     """Each kernel's launches since _zero_launches: K1 to K5, the
-    normal-fusion merge and K2w."""
+    normal-fusion merge, the nearest-vertex distance and K2w."""
     from avatarcap_tpu_torch.tools.bench_stream import _launches as launches
     return launches()
 
@@ -779,7 +789,7 @@ def pifu_phase(capture, item, recon_kw, fit, device, n_frames=8,
                launches=_launches(),
                frame=[frame_record(r) for r in results])
     want = {"k1": 2 * n_frames, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
-            "merge": n_frames, "k2w": 2 * n_frames}
+            "merge": n_frames, "knn": 0, "k2w": 2 * n_frames}
     if rec["launches"] != want:
         raise AssertionError(f"the PIFu stream launched {rec['launches']}, "
                              f"expected {want}")
@@ -821,6 +831,72 @@ def merge_phase(capture, device):
                 tolerance={"max": bk.MERGE_TOL, "share_within_1e-4":
                            bk.MERGE_SHARE},
                 library_ms=None)
+
+
+def knn_launch_inputs(capture, item, recon_kw):
+    """The inputs (queries, database) of the textured production frame's
+    two nearest-vertex launches (the avatar soup's anchors, ReconNet's),
+    recorded through the color stages the frame runs (k3_launch_inputs'
+    pass) on the meshes of a frame run for it."""
+    import torch
+    from avatarcap_tpu_torch.ops import knn as K
+    res = capture.process_frame(item, w_nerf=True, w_recon=True, **recon_kw)
+    kernel, recorded = K.nearest_vertex, []
+
+    def record(queries, database):
+        recorded.append((queries.clone(), database.clone()))
+        return kernel(queries, database)
+    record.launches = 0         # the wrapper counts under its module name
+    K.nearest_vertex = record
+    try:
+        k3_launch_inputs(capture, item, res)
+    finally:
+        K.nearest_vertex = kernel
+    _sync(capture.device)
+    del res
+    torch.cuda.empty_cache()
+    return recorded
+
+
+def knn_phase(capture, item, recon_kw, device):
+    """[knn]: the nearest-vertex distance's kernel (csrc/nearest_vertex.cu)
+    held to knn_plain's bits in every row, on the textured production
+    frame's two anchor launches (knn_launch_inputs, at the caller's chunk)
+    and on tools/bench_kernels.knn_rows' launches of the same sizes and a
+    train item's, which time it beside knn_plain on the card and the
+    float32 issue bound. Its launches are read with the other kernels'
+    (main: the pipelined stream's and the textured frame's)."""
+    import torch
+    from avatarcap_tpu_torch.ops import knn as K
+    from avatarcap_tpu_torch.tools import bench_kernels as bk
+    frame = []
+    for launch, (q, v) in zip(("frame_avatar", "frame_recon"),
+                              knn_launch_inputs(capture, item, recon_kw)):
+        with torch.inference_mode():
+            d, i = K.nearest_vertex(q, v)
+            # anchor_distances' chunk
+            d_ref, i_ref = K.knn_plain(q, v, 1, 65536)
+        frame.append({"launch": launch, "points": q.shape[0],
+                      "vertices": v.shape[0],
+                      **bk.knn_agreement(d, i, d_ref, i_ref)})
+        del q, v, d, i, d_ref, i_ref
+    rows = bk.knn_rows(device, seed=0, reps=10)
+    if len(frame) != 2 or any(r["d2_bits_differ"] or r["idx_differ"]
+                              for r in frame + rows):
+        raise AssertionError(f"the nearest-vertex kernel disagrees with "
+                             f"knn_plain: {frame} {rows}")
+    timed = [r for r in rows if r["launch"].startswith("frame")]
+    return {"name": "nearest_vertex", "route": "cuda",
+            "source": "avatarcap_tpu_torch/csrc/nearest_vertex.cu",
+            "replaces": "none (avatarcap_tpu/ops/knn.py: knn, a chunked "
+                        "product left to XLA)",
+            "max_abs_err": max(r["max_abs_err"] for r in frame + rows),
+            "tolerance": {"d2_bits_differ": 0, "idx_differ": 0},
+            "ms": sum(r["ms"] for r in timed),
+            "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "float32 issue", "library_ms": None,
+            "frame_anchors": frame, "rows": rows}
 
 
 def stage_hashes(capture, item):
@@ -907,11 +983,11 @@ def timed_production_frames(capture, item, recon_kw, device):
         _, rec = run_frame(capture, item, device, w_recon=True, **recon_kw)
         rec["cudnn_deterministic"] = deterministic
         got = (rec["k1_launches"], rec["k2_launches"],
-               rec["merge_launches"])
-        if got != (2, 2, 1):
+               rec["merge_launches"], rec["knn_launches"])
+        if got != (2, 2, 1, 0):
             raise AssertionError(
-                f"the production frame launched K1, K2, merge {got} times, "
-                "expected 2, 2 (coarse + refine) and 1")
+                f"the production frame launched K1, K2, merge, knn {got} "
+                "times, expected 2, 2 (coarse + refine), 1 and 0")
         frames.append(rec)
     torch.backends.cudnn.deterministic = False
     hashes.append(stage_hashes(capture, item))
@@ -1037,11 +1113,11 @@ def textured_frames(capture, item, recon_kw, device):
         _, rec = run_frame(capture, item, device, w_nerf=True, w_recon=True,
                            **recon_kw)
         got = (rec["k1_launches"], rec["k2_launches"], rec["k3_launches"],
-               rec["merge_launches"])
-        if got != (2, 2, 2, 1):
+               rec["merge_launches"], rec["knn_launches"])
+        if got != (2, 2, 2, 1, 2):
             raise AssertionError(
-                f"the textured production frame launched K1, K2, K3, merge "
-                f"{got} times, expected 2, 2, 2, 1")
+                f"the textured production frame launched K1, K2, K3, merge, "
+                f"knn {got} times, expected 2, 2, 2, 1, 2")
         frames.append(rec)
     out = dict(frames[0])
     out["runs"] = frames
@@ -1050,11 +1126,12 @@ def textured_frames(capture, item, recon_kw, device):
     _, avatar_only = run_frame(capture, item, device, w_nerf=True,
                                w_recon=False)
     got = (avatar_only["k1_launches"], avatar_only["k2_launches"],
-           avatar_only["k3_launches"], avatar_only["merge_launches"])
-    if got != (2, 0, 1, 0):
+           avatar_only["k3_launches"], avatar_only["merge_launches"],
+           avatar_only["knn_launches"])
+    if got != (2, 0, 1, 0, 1):
         raise AssertionError(
-            f"the avatar-only textured frame launched K1, K2, K3, merge "
-            f"{got} times, expected 2, 0, 1, 0")
+            f"the avatar-only textured frame launched K1, K2, K3, merge, knn "
+            f"{got} times, expected 2, 0, 1, 0, 1")
     out["avatar_only"] = avatar_only
     return k3, out
 
@@ -1217,8 +1294,8 @@ def stream_phase(capture, item, recon_kw):
     poses through a process_frame loop and through run_pipelined
     (lookahead 2), and the busy share of a profiled pipelined run
     (tools/bench_stream.stream_phase). The frames' hashes must agree and
-    differ from pose to pose; the pipelined run launches 8 x 2 K1, K2 and
-    K3 and 8 merges."""
+    differ from pose to pose; the pipelined run launches 8 x 2 K1, K2, K3
+    and nearest-vertex kernels and 8 merges."""
     from avatarcap_tpu_torch.tools.bench_stream import stream_phase as run
     rec = run(capture, item, recon_kw)
     for way in ("loop", "pipelined"):
@@ -1232,7 +1309,7 @@ def stream_phase(capture, item, recon_kw):
           f"profiled pipelined run {prof['busy_share']} ({prof['kernels']} "
           f"kernels, {prof['profiled_s']:.2f} s profiled)")
     want = {"k1": 16, "k2": 16, "k3": 16, "k4": 0, "k5": 0, "merge": 8,
-            "k2w": 0}
+            "knn": 16, "k2w": 0}
     if rec["pipelined"]["launches"] != want:
         raise AssertionError(f"the pipelined stream launched "
                              f"{rec['pipelined']['launches']}, expected "
@@ -1762,11 +1839,11 @@ def main() -> int:
     run_frame(capture, item, device, w_recon=False)           # warm-up
     _, frame = run_frame(capture, item, device, w_recon=False)
     got = (frame["k1_launches"], frame["k2_launches"], frame["k3_launches"],
-           frame["merge_launches"])
-    if got != (2, 0, 0, 0):
+           frame["merge_launches"], frame["knn_launches"])
+    if got != (2, 0, 0, 0, 0):
         raise AssertionError(
-            f"the avatar-only frame launched K1, K2, K3, merge {got} times, "
-            "expected 2, 0, 0, 0")
+            f"the avatar-only frame launched K1, K2, K3, merge, knn {got} "
+            "times, expected 2, 0, 0, 0, 0")
     frame["stages"] = stage_times(capture, item, device, w_recon=False)
     record["frame"] = frame
     print(f"[frame] {json.dumps(frame)}")
@@ -1787,6 +1864,9 @@ def main() -> int:
     record["frame_w_nerf"] = frame_n
     print(f"[frame_w_nerf] {json.dumps(frame_n)}")
     mark("k3_frame_w_nerf")
+    knn = knn_phase(capture, item, recon_kw, device)
+    print(f"[knn] {json.dumps(knn)}")
+    mark("knn")
     record["occupancy"] = occupancy_phase(capture, item, recon_kw, frame_n,
                                           device)
     mark("occupancy")
@@ -1815,7 +1895,7 @@ def main() -> int:
     print(f"[weight_image] built {weight_image.builds} times by the "
           "wrappers in this run (once per packed set and kernel family)")
     kerns = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5}
-    for name, kern in (*kerns.items(), ("merge", merge)):
+    for name, kern in (*kerns.items(), ("merge", merge), ("knn", knn)):
         # launches of this slice's main path, the pipelined stream of
         # textured production frames; the single frame's beside them
         kern["launches"] = record["stream"]["pipelined"]["launches"][name]
@@ -1863,7 +1943,7 @@ def main() -> int:
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels_line = {"kernels": [{k: kern[k] for k in keys}
-                                for kern in (*kerns.values(), merge)]}
+                                for kern in (*kerns.values(), merge, knn)]}
     from avatarcap_tpu_torch.tools.bench_kernels import (
         PEAK_BF16_FLOPS, gpu_name_and_power_limit)
     smi = gpu_name_and_power_limit()
@@ -1872,7 +1952,7 @@ def main() -> int:
               f"of {PEAK_BF16_FLOPS / 1e12:.0f}, {kern['ms']:.3f} ms against "
               f"a bound of {kern['bound_ms']:.3f} ms "
               f"({100 * kern['share_of_bound']:.1f}%)")
-    record.update(kerns, merge=merge)
+    record.update(kerns, merge=merge, knn=knn)
     record["gpu"] = smi
     record["seconds"] = time.perf_counter() - t_all
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -13,6 +13,8 @@ def test_bench_train_runs_on_cpu():
     assert len(fw["step_ms"]) == 3 and fw["peak_mem_gb"] is None
     assert fw["points"] == 2 * (32 * 8 + 256 + 64)
     assert fw["losses_last"]["total_loss"] < fw["losses_first"]["total_loss"]
+    assert set(fw["launches"]) >= {"k1", "knn"}
+    assert not any(fw["launches"].values())   # the CPU runs no kernel
     assert set(rec["stages"]) == {
         "pose_features", "geometry_query", "inverse_skinning", "ray_query",
         "compositing", "backward", "optimizer"}

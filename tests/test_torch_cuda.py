@@ -1013,3 +1013,206 @@ def test_merge_kernel_matches_jax(card, iter_num, neck):
         np.testing.assert_array_equal(got[box], src[box])
     else:
         assert np.abs(got[box] - src[box]).max() > 1e-2
+
+
+def _knn_agreement(q, v, chunk=16384):
+    """csrc/nearest_vertex.cu (ops/knn.nearest_vertex) against knn_plain
+    on the same card: d2 rows whose bits differ, indices that differ where
+    the plain tile's minimum is unique, and rows tied at the minimum whose
+    kernel index is not the first tied one."""
+    from avatarcap_tpu_torch.ops import knn as K
+    d, i = K.nearest_vertex(q, v)
+    d_ref, i_ref = K.knn_plain(q, v, 1, chunk)
+    assert d.shape == d_ref.shape and i.shape == i_ref.shape
+    assert i.dtype == torch.int64 and d.dtype == torch.float32
+    rec = {"d2_bits": int((d.view(torch.int32)
+                           != d_ref.view(torch.int32)).sum()),
+           "idx_unique": 0, "idx_tied": 0, "tied_rows": 0}
+    v_sq = (v * v).sum(-1)
+    for s in range(0, q.shape[0], chunk):
+        qc = q[s:s + chunk]
+        tile = (qc * qc).sum(-1, keepdim=True) - 2.0 * (qc @ v.T) + v_sq
+        low = tile == tile.min(-1, keepdim=True).values
+        tied = low.sum(-1) > 1
+        differ = (i[s:s + chunk] != i_ref[s:s + chunk])[:, 0]
+        first = low.int().argmax(-1)
+        rec["idx_unique"] += int((differ & ~tied).sum())
+        rec["idx_tied"] += int((tied & (i[s:s + chunk, 0] != first)).sum())
+        rec["tied_rows"] += int(tied.sum())
+    return rec
+
+
+def _body(card):
+    from avatarcap_tpu_torch.tools.bench_workloads import toy_avatar_statics
+    return toy_avatar_statics(dense=True, device=card)[1].cano_smpl_vertices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 127, 128, 129, 5000, 200003])
+def test_knn_kernel_matches_plain_on_random_points(card, n):
+    """Points in and around the body's box against its 6,842 vertices:
+    the plain path's bits in d2, its index everywhere (the first of tied
+    minima, torch.min's choice); one launch a call."""
+    from avatarcap_tpu_torch.ops import knn as K
+    gen = torch.Generator().manual_seed(n)
+    v = _body(card)
+    q = ((torch.rand((n, 3), generator=gen) * 2.2 - 1.1).to(card)
+         + v.mean(0))
+    before = K.nearest_vertex.launches
+    rec = _knn_agreement(q, v)
+    assert K.nearest_vertex.launches == before + 1
+    assert rec == {"d2_bits": 0, "idx_unique": 0, "idx_tied": 0,
+                   "tied_rows": rec["tied_rows"]}, rec
+
+
+@pytest.mark.cuda
+def test_knn_kernel_single_query_and_single_point(card):
+    """N = 1 and M = 1. For one query row (or one database point) cuBLAS
+    takes a matrix-vector kernel that sums q.v in another order than its
+    GEMM (on an H100, 2,174 of a row's 6,752 products with random points
+    differ in the last bit), so the plain path's own result moves with the
+    row count; the kernel's is the GEMM's, which knn_plain gives with the
+    row doubled, or with far points added to the database."""
+    from avatarcap_tpu_torch.ops import knn as K
+    gen = torch.Generator().manual_seed(1)
+    v = _body(card)
+    for n in range(8):
+        q = (torch.rand((1, 3), generator=gen) * 2 - 1).to(card) + v.mean(0)
+        d, i = K.nearest_vertex(q, v)
+        d_ref, i_ref = K.knn_plain(q.repeat(2, 1), v, 1)
+        assert torch.equal(d, d_ref[:1]) and torch.equal(i, i_ref[:1])
+        d_b, i_b = K.nearest_vertex(torch.cat([q, v[:5]]), v)
+        assert torch.equal(d_b[:1], d) and torch.equal(i_b[:1], i)
+    q = (torch.rand((3000, 3), generator=gen) * 2 - 1).to(card)
+    d, i = K.nearest_vertex(q, v[7:8].contiguous())
+    far = torch.cat([v[7:8], v + 100.0])
+    d_ref, i_ref = K.knn_plain(q, far, 1)
+    assert torch.equal(d, d_ref) and not i.any() and not i_ref.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [7169, 20000])
+def test_knn_kernel_streams_a_database_above_one_stage(card, m):
+    """Databases of more than one stage of the kernel (kStageVertices
+    points; a last stage of one point; three stages) against knn_plain,
+    with ties from repeated points across stages."""
+    from avatarcap_tpu_torch import kernels
+    assert m > kernels.source_constants("nearest_vertex.cu")["kStageVertices"]
+    gen = torch.Generator().manual_seed(m)
+    v = torch.rand((m, 3), generator=gen) * 2 - 1
+    v[-300:] = v[:300]                  # the same points in the last stage
+    q = torch.rand((50001, 3), generator=gen) * 2.2 - 1.1
+    q[:300] = v[:300]                   # d2 = 0 at two indices
+    rec = _knn_agreement(q.to(card), v.to(card))
+    assert rec["tied_rows"] >= 300, rec
+    assert rec == {"d2_bits": 0, "idx_unique": 0, "idx_tied": 0,
+                   "tied_rows": rec["tied_rows"]}, rec
+
+
+@pytest.mark.cuda
+def test_knn_kernel_keeps_the_first_of_duplicated_vertices(card):
+    """The body's vertices twice and a third copy of some: every query's
+    minimum is tied, and the kernel returns the first index, as
+    knn_plain's min does; on a grid, queries at cell centres are tied
+    between eight corners."""
+    from avatarcap_tpu_torch.ops import knn as K
+    v = _body(card)
+    dup = torch.cat([v, v, v[1000:2000]])
+    gen = torch.Generator().manual_seed(5)
+    q = (v[torch.randint(0, v.shape[0], (100000,), generator=gen)
+           .to(card)] + torch.randn((100000, 3), generator=gen).to(card)
+         * 0.03)
+    rec = _knn_agreement(q, dup)
+    assert rec["tied_rows"] == 100000, rec
+    assert rec["d2_bits"] == rec["idx_unique"] == rec["idx_tied"] == 0, rec
+    _, i = K.nearest_vertex(q, dup)
+    assert int(i.max()) < v.shape[0]
+    ax = torch.arange(8.0, device=card) * 0.125
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"),
+                       -1).reshape(-1, 3)
+    rec = _knn_agreement(grid[:343] + 0.0625, grid)
+    assert rec["tied_rows"] > 0, rec
+    assert rec["d2_bits"] == rec["idx_unique"] == rec["idx_tied"] == 0, rec
+
+
+@pytest.mark.cuda
+def test_knn_kernel_empty_other_paths_and_invalid_inputs(card):
+    """N = 0 launches nothing; k > 1 and float64 keep the plain path on
+    the card (no launch); the wrapper refuses an empty database, a
+    database on another device, and the checks the CPU tests hold."""
+    from avatarcap_tpu_torch.ops import knn as K
+    v = _body(card)
+    before = K.nearest_vertex.launches
+    d, i = K.knn(torch.empty((0, 3), device=card), v)
+    assert d.shape == i.shape == (0, 1) and i.dtype == torch.int64
+    q = torch.rand((1000, 3), device=card)
+    for args in ((q, v, 4), (q.double(), v.double(), 1)):
+        d, i = K.knn(*args)
+        d_ref, i_ref = K.knn_plain(*args)
+        assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
+    assert K.nearest_vertex.launches == before
+    with pytest.raises(ValueError, match="out of the kernel's range"):
+        K.nearest_vertex(q, v[:0])
+    with pytest.raises(ValueError, match="on cpu"):
+        K.nearest_vertex(q, v.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.nearest_vertex(q.t().contiguous().t(), v)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_on_the_small_textured_frame(card, monkeypatch):
+    """The anchor distances of the small textured production frame (both
+    soups' unique rays x 4 anchors against the body): every call through
+    knn reaches the kernel, whose outputs are knn_plain's bits at the
+    frame's chunk; under a tracer each launch is a ``knn_kernel`` span
+    inside a ``knn`` span, its ``rows`` the call's queries."""
+    from avatarcap_tpu_torch.ops import knn as K
+    from avatarcap_tpu_torch.utils.timers import Tracer
+    cap, items, kw = _small_capture(card)
+    seen = []
+    kernel = K.nearest_vertex
+
+    def recording(queries, database):
+        seen.append((queries.clone(), database.clone()))
+        return kernel(queries, database)
+    recording.launches = 0          # the wrapper counts under its name
+    monkeypatch.setattr(K, "nearest_vertex", recording)
+    tracer = Tracer(card)
+    cap.process_frame(items[1], w_recon=True, w_nerf=True, timer=tracer,
+                      **kw)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    spans = tracer.collect()
+    by_id = {s.id: s for s in spans}
+    launched = [s for s in spans if s.name == "knn_kernel"]
+    assert len(seen) == len(launched) == 2
+    assert [s.counts["rows"] for s in launched] == [q.shape[0]
+                                                    for q, _ in seen]
+    assert all(by_id[s.parent].name == "knn" for s in launched)
+    for q, v in seen:
+        assert q.shape[0] == 4 * (1 << 14)
+        rec = _knn_agreement(q, v, chunk=65536)
+        assert rec == {"d2_bits": 0, "idx_unique": 0, "idx_tied": 0,
+                       "tied_rows": rec["tied_rows"]}, rec
+
+
+@pytest.mark.cuda
+def test_knn_kernel_repeats_bit_for_bit_without_sync(card):
+    """Two calls at a train item's shape (65,536 posed samples against the
+    body) give the same bits; the second runs under
+    torch.cuda.set_sync_debug_mode("error"), as one launch."""
+    from avatarcap_tpu_torch.ops import knn as K
+    v = _body(card)
+    gen = torch.Generator().manual_seed(7)
+    q = (torch.rand((65536, 3), generator=gen) * 2 - 1).to(card) + v.mean(0)
+    first = K.knn(q, v)
+    before = K.nearest_vertex.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = K.knn(q, v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert K.nearest_vertex.launches == before + 1
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
