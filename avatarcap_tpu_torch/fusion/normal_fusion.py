@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from avatarcap_tpu_torch import kernels
 from avatarcap_tpu_torch.body.skinning import mats16_inv_rotate
 from avatarcap_tpu_torch.device import device_constant
 from avatarcap_tpu_torch.ops.adam import Adam
@@ -302,7 +303,6 @@ def merge_tables(H: int, iter_num: int) -> Dict[str, np.ndarray]:
 
 def _merge_launch(src_img: torch.Tensor, tar_img: torch.Tensor,
                   neck_xy: Sequence[int], iter_num: int) -> torch.Tensor:
-    from avatarcap_tpu_torch import kernels
     dev = src_img.device
     H = src_img.shape[0]
     if tuple(src_img.shape) != (H, H, 3) or tuple(tar_img.shape) != (H, H, 3):
@@ -325,24 +325,18 @@ def _merge_launch(src_img: torch.Tensor, tar_img: torch.Tensor,
     out = torch.empty_like(src_img)
     work = torch.empty(MERGE_WORK_FLOATS + 3 * H * H + 3 * MERGE_GRID * H,
                        dtype=torch.float32, device=dev)
-    launch, err_str = kernels.c_functions(
-        "normal_merge", "nm",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
     with live_rows(n_pixels), span("merge_kernel"):
         count("rows", H * H)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = launch(
-                src_img.data_ptr(), tar_img.data_ptr(), valid.data_ptr(),
-                n_valid.data_ptr(), H, iter_num // 2,
-                iter_num - iter_num // 2,
-                *(tables[k].data_ptr() for k in (
-                    "taps_idx", "taps_w", "adj_off", "adj_idx", "adj_w",
-                    "corr1", "corr2")),
-                *MERGE_LR, work.data_ptr(), out.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "normal_merge")
-    merge_normal_images.launches += 1
+        kernels.launch(
+            "merge", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 2
+            + [ctypes.c_void_p] * 2,
+            (src_img.data_ptr(), tar_img.data_ptr(), valid.data_ptr(),
+             n_valid.data_ptr(), H, iter_num // 2, iter_num - iter_num // 2,
+             *(tables[k].data_ptr() for k in (
+                 "taps_idx", "taps_w", "adj_off", "adj_idx", "adj_w",
+                 "corr1", "corr2")),
+             *MERGE_LR, work.data_ptr(), out.data_ptr()), dev)
     return _merge_blend(out, src_img, dt, neck_xy)
 
 
@@ -359,7 +353,7 @@ def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
 
     CUDA tensors run both phases in one launch of
     ``csrc/normal_merge.cu`` (closed-form gradients; counted in
-    ``merge_normal_images.launches``, and a span ``merge_kernel`` under a
+    ``kernels.launches["merge"]``, and a span ``merge_kernel`` under a
     tracer, its ``rows`` the H x H pixels, ``live`` the valid ones); CPU
     tensors run merge_normal_images_plain. The masks, the distance
     transform and the blend are PyTorch on either.
@@ -376,9 +370,6 @@ def merge_normal_images(src_img: torch.Tensor, tar_img: torch.Tensor,
     if src_img.device.type == "cpu":
         return merge_normal_images_plain(src_img, tar_img, neck_xy, iter_num)
     raise ValueError(f"unsupported device {src_img.device}")
-
-
-merge_normal_images.launches = 0
 
 
 def merge_normal_images_cover(src_img: torch.Tensor,

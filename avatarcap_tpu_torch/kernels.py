@@ -8,6 +8,9 @@ a hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
 a changed source or header is rebuilt. Builds
 happen at first use, or all at once, in parallel, through ``build_all``.
 Nothing is built or loaded at import time.
+
+Every kernel is called through ``launch``, by its key in ``KERNELS``,
+which also counts the call in ``launches``.
 """
 
 from __future__ import annotations
@@ -20,17 +23,31 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
-SOURCES = ("warp_template_query", "recon_decode", "ray_color_query",
-           "template_offset_query", "normal_merge", "recon_decode_wide",
-           "nearest_vertex")
+# each kernel's key: (its source csrc/<library>.cu, the prefix of its
+# <prefix>_launch and <prefix>_error_string C functions)
+KERNELS = {"k1": ("warp_template_query", "wtq"),
+           "k2": ("recon_decode", "recon_decode"),
+           "k2w": ("recon_decode_wide", "recon_decode_wide"),
+           "k3": ("ray_color_query", "rcq"),
+           "k4": ("template_offset_query", "tq"),
+           "k5": ("template_offset_query", "oq"),
+           "merge": ("normal_merge", "nm"),
+           "knn": ("nearest_vertex", "nearest_vertex")}
+SOURCES = tuple(dict.fromkeys(lib for lib, _ in KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[str, tuple] = {}
+
+# each kernel's launches in this process, by its key in KERNELS
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def _nvcc() -> str:
@@ -121,21 +138,40 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def c_functions(name: str, prefix: str, launch_argtypes):
-    """(launch, error_string) C functions of the built library
-    ``csrc/<name>.cu``, with their signatures declared."""
-    lib = load(name)
-    launch = getattr(lib, f"{prefix}_launch")
-    launch.argtypes = launch_argtypes
-    launch.restype = ctypes.c_int
-    err_str = getattr(lib, f"{prefix}_error_string")
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    return launch, err_str
+def _functions(kernel: str, argtypes) -> tuple:
+    """(launch, error_string) C functions of ``kernel``, with their
+    signatures declared, loaded once."""
+    fns = _FUNCTIONS.get(kernel)
+    if fns is None:
+        library, prefix = KERNELS[kernel]
+        lib = load(library)
+        fn = getattr(lib, f"{prefix}_launch")
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_str = getattr(lib, f"{prefix}_error_string")
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        fns = _FUNCTIONS[kernel] = (fn, err_str)
+    return fns
 
 
-def raise_on(err: int, err_str, what: str) -> None:
-    """Raise with the CUDA error's text when a launch returned one."""
+def launch(kernel: str, argtypes: Sequence, args: Sequence, device) -> None:
+    """Call ``kernel`` (a key of KERNELS) with ``args`` (of ctypes types
+    ``argtypes``) and the current stream of the CUDA ``device``, built and
+    loaded at its first call; raise with the kernel's error text if the
+    launch failed, else count it in ``launches``. Nothing synchronises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} launches on a CUDA device, got {device}")
+    fn, err_str = _functions(kernel, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
+        raise RuntimeError(f"{kernel} kernel launch failed: "
                            + err_str(err).decode())
+    launches[kernel] += 1
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each kernel's launches since ``before``, a copy of ``launches``."""
+    return {k: n - before[k] for k, n in launches.items()}

@@ -742,17 +742,13 @@ def _launch(packed_offset, packed_template, pts, pose_feat):
     out = {"occ": occ, "alpha": alpha, "rgb": rgb, "offset": off}
     if n == 0:
         return out
-    launch, err_str = kernels.c_functions(
-        "warp_template_query", "wtq",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7)
     image, bias = _cached_weight_image(packed_offset, packed_template)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(pts.data_ptr(), pf.data_ptr(), n, image.data_ptr(),
-                     bias.data_ptr(), occ.data_ptr(), alpha.data_ptr(),
-                     rgb.data_ptr(), off.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "warp_template_query")
-    warp_template_query.launches += 1
+    kernels.launch(
+        "k1", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 6,
+        (pts.data_ptr(), pf.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
+         occ.data_ptr(), alpha.data_ptr(), rgb.data_ptr(), off.data_ptr()),
+        dev)
     return out
 
 
@@ -763,7 +759,7 @@ def warp_template_query(packed_offset: Sequence[torch.Tensor],
     """One-kernel warp + template query (inference).
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``warp_template_query.launches``); CPU tensors run the plain version.
+    ``kernels.launches["k1"]``); CPU tensors run the plain version.
     Under a tracer (utils/timers), either is a span ``k1`` counting its
     ``rows``.
 
@@ -783,9 +779,6 @@ def warp_template_query(packed_offset: Sequence[torch.Tensor],
     raise ValueError(f"unsupported device {pts.device}")
 
 
-warp_template_query.launches = 0
-
-
 def _recon_launch(packed, feats):
     dev = feats.device
     if feats.dim() != 2 or feats.shape[1] != RECON_IN_DIM:
@@ -799,16 +792,11 @@ def _recon_launch(packed, feats):
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch, err_str = kernels.c_functions(
-        "recon_decode", "recon_decode",
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
     image, bias = _cached_recon_image(packed)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "recon_decode")
-    recon_decode.launches += 1
+    kernels.launch("k2", [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3,
+                   (feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
+                    out.data_ptr()), dev)
     return out
 
 
@@ -825,16 +813,11 @@ def _recon_wide_launch(packed, feats):
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch, err_str = kernels.c_functions(
-        "recon_decode_wide", "recon_decode_wide",
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
     image, vecs = _cached_recon_wide_image(packed)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(feats.data_ptr(), n, image.data_ptr(), vecs.data_ptr(),
-                     out.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "recon_decode_wide")
-    recon_decode.wide_launches += 1
+    kernels.launch("k2w", [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3,
+                   (feats.data_ptr(), n, image.data_ptr(), vecs.data_ptr(),
+                    out.data_ptr()), dev)
     return out
 
 
@@ -844,8 +827,8 @@ def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
 
     The packed shapes pick the kernel (RECON_FORMS): AvatarCap's decoder
     runs on K2, PIFu's on K2w, and any other is a ValueError. CUDA tensors
-    launch the Hopper kernel (counted in ``recon_decode.launches`` and
-    ``recon_decode.wide_launches``); CPU tensors run the plain version.
+    launch the Hopper kernel (counted in ``kernels.launches`` under its
+    span's name); CPU tensors run the plain version.
     Under a tracer, either is a span ``k2`` or ``k2w`` counting its
     ``rows``.
 
@@ -873,10 +856,6 @@ def recon_decode(packed: Sequence[torch.Tensor], feats: torch.Tensor
 # each ReconNet kernel's launch and plain version, by its span
 _RECON_RUNS = {"k2": (_recon_launch, recon_decode_plain),
                "k2w": (_recon_wide_launch, recon_decode_wide_plain)}
-
-
-recon_decode.launches = 0
-recon_decode.wide_launches = 0
 
 
 def _check_rays(ro, rd, pf0, pf1, danch, bounds, n_samples):
@@ -919,20 +898,14 @@ def _ray_launch(packed_offset, packed_template, ro, rd, pf0, pf1, danch,
     f32 = [t.to(torch.float32).contiguous() for t in (ro, rd, danch, bounds)]
     bf = [t.to(torch.bfloat16).contiguous() for t in (pf0, pf1)]
     near32, gap, step = ray_constants(n_samples, danch.shape[1], near, far)
-    launch, err_str = kernels.c_functions(
-        "ray_color_query", "rcq",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4
-        + [ctypes.c_void_p] * 4)
     image, bias = _cached_weight_image(packed_offset, packed_template)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(f32[0].data_ptr(), f32[1].data_ptr(), bf[0].data_ptr(),
-                     bf[1].data_ptr(), f32[2].data_ptr(), f32[3].data_ptr(),
-                     r, n_samples, danch.shape[1], near32, gap, step,
-                     _f32(threshold), image.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "ray_color_query")
-    ray_color_query.launches += 1
+    kernels.launch(
+        "k3", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3,
+        (f32[0].data_ptr(), f32[1].data_ptr(), bf[0].data_ptr(),
+         bf[1].data_ptr(), f32[2].data_ptr(), f32[3].data_ptr(), r,
+         n_samples, danch.shape[1], near32, gap, step, _f32(threshold),
+         image.data_ptr(), bias.data_ptr(), out.data_ptr()), dev)
     return out
 
 
@@ -949,7 +922,7 @@ def ray_color_query(packed_offset: Sequence[torch.Tensor],
     raw2outputs compositing recurrence.
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``ray_color_query.launches``); CPU tensors run the plain version.
+    ``kernels.launches["k3"]``); CPU tensors run the plain version.
     Under a tracer, either is a span ``k3`` counting its ``rows`` (rays).
 
     Args:
@@ -978,9 +951,6 @@ def ray_color_query(packed_offset: Sequence[torch.Tensor],
     raise ValueError(f"unsupported device {ro.device}")
 
 
-ray_color_query.launches = 0
-
-
 def _template_launch(packed_template, pts):
     dev = pts.device
     n = pts.shape[0]
@@ -991,16 +961,11 @@ def _template_launch(packed_template, pts):
     occ = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if n == 0:
         return rgb, alpha, occ
-    launch, err_str = kernels.c_functions(
-        "template_offset_query", "tq",
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6)
     image, bias = _cached_weight_image(None, packed_template)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(pts.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
-                     rgb.data_ptr(), alpha.data_ptr(), occ.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "template_query")
-    template_query.launches += 1
+    kernels.launch("k4", [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5,
+                   (pts.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
+                    rgb.data_ptr(), alpha.data_ptr(), occ.data_ptr()), dev)
     return rgb, alpha, occ
 
 
@@ -1009,7 +974,7 @@ def template_query(packed_template: Sequence[torch.Tensor],
     """DoubleTNet query on unwarped points (inference).
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``template_query.launches``); CPU tensors run the plain version.
+    ``kernels.launches["k4"]``); CPU tensors run the plain version.
 
     Args:
       packed_template: pack_template_weights output on the points' device.
@@ -1028,9 +993,6 @@ def template_query(packed_template: Sequence[torch.Tensor],
     raise ValueError(f"unsupported device {pts.device}")
 
 
-template_query.launches = 0
-
-
 def _offset_launch(packed_offset, feats):
     dev = feats.device
     n = feats.shape[0]
@@ -1039,16 +1001,11 @@ def _offset_launch(packed_offset, feats):
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch, err_str = kernels.c_functions(
-        "template_offset_query", "oq",
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4)
     image, bias = _cached_weight_image(packed_offset, None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), stream)
-    kernels.raise_on(err, err_str, "offset_query")
-    offset_query.launches += 1
+    kernels.launch("k5", [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3,
+                   (feats.data_ptr(), n, image.data_ptr(), bias.data_ptr(),
+                    out.data_ptr()), dev)
     return out
 
 
@@ -1057,7 +1014,7 @@ def offset_query(packed_offset: Sequence[torch.Tensor], feats: torch.Tensor
     """Warp-offset decode (inference; BatchNorm from running stats).
 
     CUDA tensors launch the Hopper kernel (counted in
-    ``offset_query.launches``); CPU tensors run the plain version.
+    ``kernels.launches["k5"]``); CPU tensors run the plain version.
 
     Args:
       packed_offset: pack_offset_weights output on the feats' device.
@@ -1075,6 +1032,3 @@ def offset_query(packed_offset: Sequence[torch.Tensor], feats: torch.Tensor
     if feats.device.type == "cpu":
         return offset_query_plain(packed_offset, feats)
     raise ValueError(f"unsupported device {feats.device}")
-
-
-offset_query.launches = 0

@@ -4,16 +4,19 @@ volume), and ``knn_chunk``, the query chunk that bounds a distance tile.
 Distances are squared L2, computed as |q|^2 - 2 q.v + |v|^2 with one f32
 matmul per query chunk; on float32 CUDA tensors the nearest one (k = 1)
 comes from one launch of csrc/nearest_vertex.cu instead, which writes no
-tile and repeats that arithmetic's rounding (``nearest_vertex``).
+tile and repeats that arithmetic's rounding (``nearest_vertex``). Without
+a chunk, knn_plain sizes its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
+from avatarcap_tpu_torch import kernels
 from avatarcap_tpu_torch.ops.volume_render import linspace01
 from avatarcap_tpu_torch.utils.timers import count, live_rows, span
 
@@ -41,7 +44,7 @@ def nearest_vertex(queries: torch.Tensor, database: torch.Tensor):
     sums, so the distances are its bits and the index is its index (the
     first of equal minima). Nothing synchronises; no gradient flows (the
     JAX package's knn stops them too). Counted in
-    ``nearest_vertex.launches``; under a tracer the launch is a span
+    ``kernels.launches["knn"]``; under a tracer the launch is a span
     ``knn_kernel`` whose ``rows`` are the N queries.
 
     Args:
@@ -50,7 +53,6 @@ def nearest_vertex(queries: torch.Tensor, database: torch.Tensor):
     Returns:
       d2 (N, 1) float32 squared distances, clamped at 0; idx (N, 1) int64.
     """
-    from avatarcap_tpu_torch import kernels
     named = (("queries", queries), ("database", database))
     for name, t in named:
         if t.dtype != torch.float32:
@@ -78,33 +80,26 @@ def nearest_vertex(queries: torch.Tensor, database: torch.Tensor):
     q, db = queries.detach(), database.detach()
     q_sq = (q * q).sum(-1)
     rows = torch.cat([db, (db * db).sum(-1)[:, None]], 1)
-    launch, err_str = kernels.c_functions(
-        "nearest_vertex", "nearest_vertex",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p])
     # every row is live; a scope of its own leaves an outer scope's rows
     # to the kernels they count
     with live_rows(n), span("knn_kernel"):
         count("rows", n)
-        with torch.cuda.device(dev):
-            err = launch(q.data_ptr(), q_sq.data_ptr(), n, rows.data_ptr(), m,
-                         d2.data_ptr(), idx.data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    kernels.raise_on(err, err_str, "nearest_vertex")
-    nearest_vertex.launches += 1
+        kernels.launch(
+            "knn", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p],
+            (q.data_ptr(), q_sq.data_ptr(), n, rows.data_ptr(), m,
+             d2.data_ptr(), idx.data_ptr()), dev)
     return d2, idx
 
 
-nearest_vertex.launches = 0
-
-
 def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
-        chunk: int = 16384):
+        chunk: Optional[int] = None):
     """K nearest database points of each query.
 
     Args:
       queries: (N, 3); database: (M, 3).
+      chunk: knn_plain's query rows per tile (None: its default).
     Returns:
       dists (N, k) squared distances, ascending; idx (N, k) int64.
     Under a tracer (utils/timers) the call is a span ``knn``. With k = 1
@@ -121,10 +116,14 @@ def knn(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
 
 
 def knn_plain(queries: torch.Tensor, database: torch.Tensor, k: int = 1,
-              chunk: int = 16384):
+              chunk: Optional[int] = None):
     """knn in PyTorch on any device: every ``chunk`` queries make a
     (chunk, M) distance tile, one product and three elementwise passes,
-    then its min (k = 1) or top-k. The chunk changes no result."""
+    then its min (k = 1) or top-k. The chunk changes no result; by default
+    it is at most 16,384 rows and a tile of at most 2^26 entries (256
+    MiB)."""
+    if chunk is None:
+        chunk = max(1, min(16384, (1 << 26) // max(1, database.shape[0])))
     db_sq = (database * database).sum(-1)
     dists, idxs = [], []
     for s in range(0, queries.shape[0], chunk):
@@ -176,7 +175,7 @@ def near_distance_volume(smpl_vertices: torch.Tensor, bounds: torch.Tensor,
         t = linspace01(res[a], device=dev)
         lin.append(float(lo32[a]) * (1.0 - t) + float(hi32[a]) * t)
     pts = torch.stack(torch.meshgrid(*lin, indexing="ij"), -1).reshape(-1, 3)
-    d2, _ = knn(pts, smpl_vertices, k=1, chunk=65536)
+    d2, _ = knn(pts, smpl_vertices, k=1)
     return torch.sqrt(d2[:, 0]).reshape(res), res
 
 

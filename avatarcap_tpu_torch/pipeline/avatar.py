@@ -29,7 +29,7 @@ from avatarcap_tpu_torch.ops.knn import knn, knn_gather
 from avatarcap_tpu_torch.ops.se3 import rigid_inverse
 from avatarcap_tpu_torch.ops.volume_render import (
     raw2outputs, stratified_z_vals, z_vals_to_dists)
-from avatarcap_tpu_torch.utils.timers import NO_SPAN
+from avatarcap_tpu_torch.utils.timers import stage
 
 # 8 cm body proximity gate of every near-body test (the reference's
 # arch_avatar.py:191): the masked query, the anchored ray flags, the
@@ -56,12 +56,6 @@ class FrameInputs(NamedTuple):
     live_smpl_v: torch.Tensor          # (B, V, 3)
     cano2live_jnt_mats: torch.Tensor   # (B, J, 4, 4)
     smpl_pos_map: torch.Tensor         # (B, H, W, 6) NHWC
-
-
-def stage(timer, name: str):
-    """``timer(name)``, a context manager around one stage, or the shared
-    no-op (utils/timers.NO_SPAN)."""
-    return timer(name) if timer is not None else NO_SPAN
 
 
 def compute_pose_features(model: GeoTexAvatar, smpl_pos_map: torch.Tensor,

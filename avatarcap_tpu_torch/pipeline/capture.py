@@ -58,14 +58,14 @@ from avatarcap_tpu_torch.parallel.mesh import AXIS, canonical_device
 from avatarcap_tpu_torch.pipeline.avatar import (
     NEAR_SMPL_DIST, AvatarStatics, FrameInputs, compute_pose_features,
     fused_occupancy, grid_pose_features, pack_fused_query_weights,
-    query_occupancy, render_rays, stage)
+    query_occupancy, render_rays)
 from avatarcap_tpu_torch.render.camera import (
     cano_front_back_mvp, gl_perspective_projection_matrix, real2gl_matrix)
 from avatarcap_tpu_torch.render.raster import interpolate
 from avatarcap_tpu_torch.render.visualize import (cano_index_passes,
                                                   phong_shade,
                                                   render_live_mesh)
-from avatarcap_tpu_torch.utils.timers import frame_span, live_rows
+from avatarcap_tpu_torch.utils.timers import frame_span, live_rows, stage
 
 
 class CaptureGrid(NamedTuple):
@@ -281,12 +281,6 @@ def hierarchical_volume(value_fn, grid: CaptureGrid, cano_bounds, c_prior,
     return vol, q_overflow
 
 
-def _knn_chunk(database: torch.Tensor) -> int:
-    """Query chunk of a KNN against ``database`` that keeps its (chunk, M)
-    distance tile at 2^26 floats."""
-    return max(1, min(16384, (1 << 26) // max(1, database.shape[0])))
-
-
 NORMAL_MODES = ("trilinear", "mc_edge", "sobel_sample")
 
 
@@ -336,7 +330,7 @@ def anchor_distances(ro: torch.Tensor, rd: torch.Tensor, near: float,
     za = device_constant(np.linspace(near, far, n_anchors).astype(np.float32),
                          ro.device)
     pts = ro[:, None, :] + rd[:, None, :] * za[None, :, None]   # (R, A, 3)
-    d2, _ = knn(pts.reshape(-1, 3), smpl_vertices, k=1, chunk=65536)
+    d2, _ = knn(pts.reshape(-1, 3), smpl_vertices, k=1)
     return torch.sqrt(d2[:, 0]).reshape(ro.shape[0], n_anchors)
 
 
@@ -998,8 +992,7 @@ class AvatarCapture:
         o = self.opt
         Ur = o.recon_unique_capacity
         if not Ur or uniq is None or recon_mesh.edge_ids is None:
-            _, idx = knn(recon_mesh.vertices, avatar_verts, k=1,
-                         chunk=_knn_chunk(avatar_verts))
+            _, idx = knn(recon_mesh.vertices, avatar_verts, k=1)
             return (avatar_colors[idx[:, 0]],
                     torch.zeros((), dtype=torch.bool,
                                 device=avatar_verts.device))
@@ -1015,8 +1008,7 @@ class AvatarCapture:
             # unused capacity parks far away, so it never is the nearest
             db = torch.where(valid_u[:, None], v_u,
                              torch.full_like(v_u, 1e9))
-            _, idx = knn(recon_mesh.vertices[rep_r], db, k=1,
-                         chunk=_knn_chunk(db))
+            _, idx = knn(recon_mesh.vertices[rep_r], db, k=1)
             rgb_r = rgb_u.flip(-1)[idx[:, 0]][uo_r]       # BGR -> RGB
         return (torch.where(valid_r[:, None], rgb_r, torch.zeros_like(rgb_r)),
                 overflow)
@@ -1129,9 +1121,8 @@ class AvatarCapture:
         """The per-frame pipeline on device tensors (the counterpart of the
         JAX ``frame_body``), shared by ``process_frame`` and
         pipeline/streaming.py. It reads nothing back to the host, so the
-        host may queue the next frame behind it (a ``timer`` that
-        synchronises, such as utils/timers.StageTimer, does; a Tracer does
-        not).
+        host may queue the next frame behind it (the program's stage hook,
+        utils/timers.Tracer, synchronises nothing).
 
         Args:
           frame: FrameInputs on the device; jnt_mats: (J, 4, 4).

@@ -225,6 +225,7 @@ def merge_row(dev, seed: int, reps: int, side: int = MERGE_SIDE,
     plain path's ms on the card, the kernel's bound (its inputs and
     output over the memory rate), launches a call, merge_agreement, a
     SHA-1 of the output."""
+    from avatarcap_tpu_torch import kernels
     from avatarcap_tpu_torch.fusion import normal_fusion as nf
     src, tar = (torch.as_tensor(a).to(dev) for a in merge_inputs(side, seed))
     neck = (side // 2, side // 2 - 40)
@@ -234,9 +235,9 @@ def merge_row(dev, seed: int, reps: int, side: int = MERGE_SIDE,
 
     def plain():
         return nf.merge_normal_images_plain(src, tar, neck, iters)
-    before = nf.merge_normal_images.launches
+    before = kernels.launches["merge"]
     got = call()
-    launches = nf.merge_normal_images.launches - before
+    launches = kernels.launches["merge"] - before
     # src, tar and the output (f32, 3 channels) and the mask (1 byte)
     nbytes = side ** 2 * (3 * 4 * 3 + 1)
     return {"name": "normal_merge", "launch": "merge", "points": side ** 2,

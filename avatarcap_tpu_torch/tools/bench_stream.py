@@ -35,9 +35,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from avatarcap_tpu_torch.fusion.normal_fusion import merge_normal_images
-from avatarcap_tpu_torch.ops import fused_query as fq
-from avatarcap_tpu_torch.ops import knn as knn_ops
+from avatarcap_tpu_torch import kernels
 from avatarcap_tpu_torch.tools.bench_kernels import outputs_sha1
 
 FORMS = {"avatar_only": dict(w_recon=False, w_nerf=False),
@@ -45,29 +43,6 @@ FORMS = {"avatar_only": dict(w_recon=False, w_nerf=False),
          "w_recon_w_nerf": dict(w_recon=True, w_nerf=True)}
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def _wrappers() -> Dict[str, object]:
-    """The kernels' wrappers, K1 to K5, the normal-fusion merge and the
-    nearest-vertex distance, each counting its launches."""
-    return {"k1": fq.warp_template_query, "k2": fq.recon_decode,
-            "k3": fq.ray_color_query, "k4": fq.template_query,
-            "k5": fq.offset_query, "merge": merge_normal_images,
-            "knn": knn_ops.nearest_vertex}
-
-
-def _zero_launches() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
-    fq.recon_decode.wide_launches = 0
-
-
-def _launches() -> Dict[str, int]:
-    """Each kernel's launches since _zero_launches: K1 to K5, the merge,
-    the nearest-vertex distance, and K2w
-    (``recon_decode.wide_launches``)."""
-    return {**{k: fn.launches for k, fn in _wrappers().items()},
-            "k2w": fq.recon_decode.wide_launches}
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -190,8 +165,8 @@ def stream_phase(capture, item: dict, recon_kw: dict, n_frames: int = 8,
                  lookahead: int = 2) -> dict:
     """The textured production frame on n_frames distinct poses: a
     process_frame loop, then run_pipelined, each timed on the host clock
-    from its first call to the card's end, with the launch counts set to 0
-    just before and read just after; each frame's output hash must agree
+    from its first call to the card's end, with the launch counts read
+    just before and just after; each frame's output hash must agree
     between the two; then the busy share of a third, profiled pipelined
     run."""
     from avatarcap_tpu_torch.parallel import make_mesh
@@ -208,14 +183,14 @@ def stream_phase(capture, item: dict, recon_kw: dict, n_frames: int = 8,
 
     def timed(name, fn):
         torch.cuda.synchronize(dev)
-        _zero_launches()
+        before = dict(kernels.launches)
         t0 = time.perf_counter()
         results = fn()
         torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t0
         runs[name] = {"seconds": secs, "frames_per_s": n_frames / secs,
                       "s_per_frame": secs / n_frames,
-                      "launches": _launches(),
+                      "launches": kernels.launches_since(before),
                       "sha1": [frame_sha1(r) for r in results],
                       "num_tris": [int(r["cano_mesh"].num_tris)
                                    for r in results],
@@ -253,11 +228,11 @@ def shard_phase(capture, item: dict, recon_kw: dict) -> dict:
                                 tex_avatar=capture.tex_avatar,
                                 options=capture.opt, device=dev,
                                 shard_mesh=mesh)
-        _zero_launches()
+        before = dict(kernels.launches)
         got = frame_sha1(sharded.process_frame(item, **kw))
         out["meshes"][name] = {"devices": [str(d) for d in mesh],
                                "sha1": got, "bit_equal": got == ref,
-                               "launches": _launches()}
+                               "launches": kernels.launches_since(before)}
         del sharded
     return out
 
@@ -285,7 +260,7 @@ def mesh_run_phase(capture, item: dict, recon_kw: dict, n_frames: int = 8,
     sc.run(items[:sc.batch], normals[:sc.batch])            # warm-up
     for dev in set(mesh):
         torch.cuda.synchronize(dev)
-    _zero_launches()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     results = sc.run(items, normals)
     for dev in set(mesh):
@@ -294,7 +269,8 @@ def mesh_run_phase(capture, item: dict, recon_kw: dict, n_frames: int = 8,
     got = [frame_sha1(r) for r in results]
     return {"devices": [str(d) for d in mesh], "frames": n_frames,
             "frames_per_device": frames_per_device, "seconds": secs,
-            "frames_per_s": n_frames / secs, "launches": _launches(),
+            "frames_per_s": n_frames / secs,
+            "launches": kernels.launches_since(before),
             "result_devices": [str(r["cano_mesh"].vertices.device)
                                for r in results],
             "hashes_agree": got == loop}
@@ -330,7 +306,6 @@ def sharded_query_check(avatar, statics, grid, pos_map, device) -> dict:
 def main(argv=None) -> int:
     import argparse
     import json
-    from avatarcap_tpu_torch import kernels
     from avatarcap_tpu_torch.tools.bench_kernels import (
         gpu_name_and_power_limit)
     from avatarcap_tpu_torch.tools.bench_workloads import (

@@ -10,9 +10,9 @@ vertices) driven through the port's training entry points, and checked.
   peak device memory, the five losses of the first and the last step
   (finite; the total must fall), the step's multiply-adds with the
   bound they set at the card's float32 peak, and the kernels' launches
-  over the steps (tools/bench_stream's count; on the card the
-  nearest-vertex kernel's must be one an item, inverse skinning's).
-- The synchronised stage times of one step.
+  over the steps (kernels.launches; on the card the nearest-vertex
+  kernel's must be one an item, inverse skinning's).
+- The stage times of one step (utils/timers.Tracer's stage spans).
 - The epoch-0 policy: one step at lrs [1e-3, 0] leaves every warp-field
   parameter's bits as they were, moves every template parameter and the
   warp field's BatchNorm statistics.
@@ -72,7 +72,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from avatarcap_tpu_torch.utils.timers import StageTimer
+from avatarcap_tpu_torch import kernels
+from avatarcap_tpu_torch.utils.timers import Tracer, stage_seconds
 
 # H100 SXM data-sheet float32 peak outside the tensor cores (TF32 is off)
 PEAK_F32_FLOPS = 67e12
@@ -160,17 +161,15 @@ def full_width_steps(env, device, n_steps: int) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     state, m = trainer.train_step(state, batch, LRS, generator=gen)
     first = {k: float(v) for k, v in m.items()}
-    from avatarcap_tpu_torch.tools.bench_stream import (_launches,
-                                                         _zero_launches)
     ms = []
-    _zero_launches()
+    before = dict(kernels.launches)
     for _ in range(n_steps):
         _sync(device)
         t0 = time.perf_counter()
         state, m = trainer.train_step(state, batch, LRS, generator=gen)
         _sync(device)
         ms.append(1e3 * (time.perf_counter() - t0))
-    launches = _launches()
+    launches = kernels.launches_since(before)
     last = {k: float(v) for k, v in m.items()}
     env["state"] = state
     macs = step_macs(state.model, batch, trainer.n_samples)
@@ -198,11 +197,11 @@ def full_width_steps(env, device, n_steps: int) -> dict:
 
 
 def stage_times(env, device) -> dict:
-    timer = StageTimer(device)
+    tracer = Tracer(device)
     gen = torch.Generator(device=device).manual_seed(1)
     env["state"], _ = env["trainer"].train_step(
-        env["state"], env["batch"], LRS, generator=gen, timer=timer)
-    return timer.times
+        env["state"], env["batch"], LRS, generator=gen, timer=tracer)
+    return stage_seconds(tracer.collect())
 
 
 def epoch0_policy(env, device) -> dict:

@@ -51,7 +51,7 @@ from avatarcap_tpu_torch.ops.knn import knn, knn_chunk
 from avatarcap_tpu_torch.ops.marching_cubes import marching_tets
 from avatarcap_tpu_torch.ops.poisson import poisson_reconstruct
 from avatarcap_tpu_torch.ops.se3 import axis_angle_to_matrix, rigid_inverse
-from avatarcap_tpu_torch.utils.timers import StageTimer
+from avatarcap_tpu_torch.utils.timers import Tracer, stage, stage_seconds
 
 # the embedded-deformation graph's node spacing (the reference's
 # nonrigid_fitting.py default)
@@ -313,9 +313,9 @@ def canonicalize_and_reconstruct(scan_v, scan_n, smpl_pose, smpl_shape,
     dense-grid solve; 'tsdf': the KNN-plane TSDF) and flag the triangles
     whose three vertices lie within 1 cm of the scan.
 
-    ``record``, when given, is filled with each stage's seconds (the
-    device synchronised around each), the counts (points kept by the
-    culling, nodes, inpainted vertices, triangles, the share of
+    ``record``, when given, is filled with each stage's seconds (a
+    Tracer's stage spans: CUDA events on a card), the counts (points kept
+    by the culling, nodes, inpainted vertices, triangles, the share of
     original-surface triangles, the template's mean distance to the scan
     before and after the fit, the Poisson mesh's overflow bit) and the
     reconstruction's inputs and output (``reconstruction``: ``points``,
@@ -324,31 +324,31 @@ def canonicalize_and_reconstruct(scan_v, scan_n, smpl_pose, smpl_shape,
     Returns (wt_verts soup, num_tris, ori_sur_flag per triangle).
     """
     device = resolve_device(device)
-    timer = StageTimer(device) if record is not None else None
-    with StageTimer.maybe(timer, "canonicalize"):
+    timer = Tracer(device) if record is not None else None
+    with stage(timer, "canonicalize"):
         cano_v, cano_n = canonicalize_scan(scan_v, scan_n, smpl_pose,
                                            smpl_shape, smpl_params,
                                            device=device)
-    with StageTimer.maybe(timer, "template"):
+    with stage(timer, "template"):
         tv = _cano_vertices(smpl_params, smpl_shape, device)
         tf = smpl_params.faces
         if subdivide_template:
             tv, tf = subdivide_mesh(tv, tf)
         tn = vertex_normals(tv, tf)
-    with StageTimer.maybe(timer, "nonrigid_fit"):
+    with stage(timer, "nonrigid_fit"):
         fitted = nonrigid_fit(tv, tn, cano_v, cano_n,
                               iterations=fit_iterations, device=device)
         fitted_n = vertex_normals(fitted, tf)
 
     scan = _t(cano_v, device)
-    with StageTimer.maybe(timer, "inpaint"):
+    with stage(timer, "inpaint"):
         # template vertices > 1 cm from the scan (reference :129-143)
         d2_fit = _nearest_d2(_t(fitted, device), scan)
         inpaint = _np(d2_fit) > 0.01 ** 2
         all_v = np.concatenate([cano_v, fitted[inpaint]])
         all_n = np.concatenate([cano_n, fitted_n[inpaint]])
 
-    with StageTimer.maybe(timer, method):
+    with stage(timer, method):
         if method == "poisson":
             wt_verts, nt, mesh = poisson_reconstruct(
                 all_v, all_n, res=poisson_res, device=device,
@@ -357,14 +357,14 @@ def canonicalize_and_reconstruct(scan_v, scan_n, smpl_pose, smpl_shape,
             wt_verts, nt = watertight_from_points(all_v, all_n, voxel=voxel,
                                                   device=device)
 
-    with StageTimer.maybe(timer, "surface_flag"):
+    with stage(timer, "surface_flag"):
         # original-surface flag per triangle (reference :164-176)
         ori_v = _np(_nearest_d2(_t(wt_verts, device), scan)) < 0.01 ** 2
         tri_flag = ori_v.reshape(-1, 3).all(axis=1)
 
     if record is not None:
         d2_tv = _nearest_d2(_t(tv, device), scan)
-        record["seconds"] = dict(timer.times)
+        record["seconds"] = stage_seconds(timer.collect())
         record["counts"] = {
             "scan_points": len(scan_v), "kept_points": len(cano_v),
             "template_vertices": len(tv),
@@ -518,11 +518,11 @@ def preprocess_training_data(data_dir: str, smpl_params: SmplParams,
     os.makedirs(os.path.join(data_dir, "cano_pts_ov"), exist_ok=True)
 
     run = {"seconds": {}, "scans": []}
-    timer = StageTimer(device)
-    with timer.stage("weight_volume"):
+    timer = Tracer(device)
+    with timer("weight_volume"):
         np.save(os.path.join(data_dir, "cano_base_blend_weight_volume.npy"),
                 compute_weight_volume(smpl_params, shape, device=device))
-    run["seconds"] = dict(timer.times)
+    run["seconds"] = stage_seconds(timer.collect())
 
     # reference camera: fx=fy=550 at 512^2 (reference :488-496)
     cam = {"fx": 550.0 * img_size / 512.0, "fy": 550.0 * img_size / 512.0,
@@ -541,8 +541,8 @@ def preprocess_training_data(data_dir: str, smpl_params: SmplParams,
             verts, normals, pose, shape, smpl_params,
             fit_iterations=fit_iterations, voxel=voxel, device=device,
             record=rec)
-        timer = StageTimer(device)
-        with timer.stage("presample"):
+        timer = Tracer(device)
+        with timer("presample"):
             sur, sur_ov, vol, vol_ov = presample_points(
                 wt_verts, nt, ori_flag, sur_count=sur_count,
                 vol_count=vol_count, device=device)
@@ -552,7 +552,7 @@ def preprocess_training_data(data_dir: str, smpl_params: SmplParams,
 
         # orbit color / depth / mask views of the TEXTURED live scan, the
         # avatar's RGB supervision (reference :314-379, 520-527)
-        with timer.stage("orbit_views"):
+        with timer("orbit_views"):
             if colors is None:
                 # untextured scan: mid-gray so training still gets rgb
                 colors = np.full_like(verts, 0.5, dtype=np.float32)
@@ -560,12 +560,12 @@ def preprocess_training_data(data_dir: str, smpl_params: SmplParams,
                 verts, faces, colors,
                 os.path.join(data_dir, f"imgs/{idx:03d}"), cam,
                 n_views=n_views, device=device)
-        with timer.stage("position_map"):
+        with timer("position_map"):
             pm = render_smpl_position_map(smpl_params, pose, shape,
                                           res=pos_map_res, device=device)
             save_float_image(os.path.join(
                 data_dir, f"smpl/smpl_pos_map_{idx:04d}_cano"), pm)
-        rec["seconds"].update(timer.times)
+        rec["seconds"].update(stage_seconds(timer.collect()))
         run["scans"].append(rec)
 
     with open(os.path.join(data_dir, "dataConfig.yaml"), "w") as f:
@@ -615,9 +615,9 @@ def preprocess_real_data(data_dir: str, smpl_params: SmplParams,
         idx = int(os.path.splitext(os.path.basename(pose_path))[0]
                   .replace("pose_", ""))
         pose = np.loadtxt(pose_path).astype(np.float32)
-        timer = StageTimer(device)
+        timer = Tracer(device)
         if generator is not None:
-            with timer.stage("normal"):
+            with timer("normal"):
                 with torch.no_grad():
                     live_v = _np(smpl_forward(smpl_params, _t(pose, device),
                                               _t(shape, device)).vertices)
@@ -632,12 +632,13 @@ def preprocess_real_data(data_dir: str, smpl_params: SmplParams,
                                           img.shape[:2])
                 save_float_image(os.path.join(
                     data_dir, f"imgs/normal/normal_{idx:04d}"), normal)
-        with timer.stage("position_map"):
+        with timer("position_map"):
             pm = render_smpl_position_map(smpl_params, pose, shape,
                                           res=pos_map_res, device=device)
             save_float_image(os.path.join(
                 data_dir, f"smpl/smpl_pos_map_{idx:04d}_cano"), pm)
-        records.append({"idx": idx, "seconds": dict(timer.times)})
+        records.append({"idx": idx,
+                        "seconds": stage_seconds(timer.collect())})
 
     data_config.update({"data_type": "real", "pos_map_name": "cano",
                         "pos_map_res": pos_map_res})

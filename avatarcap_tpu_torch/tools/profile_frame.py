@@ -3,10 +3,10 @@
 
 Runs the capture workload (384 x 384 x 128 grid, 512^2 renders with the
 normal merge, full ReconNet) and prints where the seconds go: a warm-up
-frame, then ``--frames`` frames through utils/timers.StageTimer (each
-stage between two synchronises of the card), their mean stage seconds,
-and, for the production frame, the same frames without the timer (the
-path a caller runs: no synchronise until the end).
+frame, then ``--frames`` frames under the program's tracer
+(utils/timers.Tracer, which synchronises nothing; on the card each stage
+is timed by two CUDA events, the stage times the benchmark reads), their
+mean stage seconds, and the same frames without the tracer.
 
 Usage: python -m avatarcap_tpu_torch.tools.profile_frame [--frames N]
        [--nerf] [--no-recon] [--vol-res X Y Z] [--fusion-iters N]
@@ -28,10 +28,11 @@ import torch
 def profile_frames(capture, item: dict, recon_kw: dict, frames: int = 3,
                    w_recon: bool = True, w_nerf: bool = False,
                    trace_dir=None) -> dict:
-    """Stage seconds (means over ``frames`` timed frames after a warm-up
-    one) and seconds a frame, with and without the stage timer; host
-    clock, each timed run ending in a synchronise of the card."""
-    from avatarcap_tpu_torch.utils.timers import StageTimer
+    """Stage seconds (means over ``frames`` traced frames after a warm-up
+    one, from the tracer's stage spans) and seconds a frame, with and
+    without the tracer; host clock, each timed run ending in a synchronise
+    of the card."""
+    from avatarcap_tpu_torch.utils.timers import Tracer, stage_seconds
     dev = capture.device
 
     def sync():
@@ -40,9 +41,11 @@ def profile_frames(capture, item: dict, recon_kw: dict, frames: int = 3,
 
     kw = dict(w_recon=w_recon, w_nerf=w_nerf,
               **(recon_kw if w_recon else {}))
+    tracer = Tracer(dev)
     t0 = time.perf_counter()
-    res = capture.process_frame(item, timer=StageTimer(dev), **kw)
+    res = capture.process_frame(item, timer=tracer, **kw)
     sync()
+    tracer.collect()
     out = {"first_frame_s": time.perf_counter() - t0,
            "num_tris": int(res["cano_mesh"].num_tris),
            "overflow": bool(res["overflow"]), "frames": frames,
@@ -55,14 +58,14 @@ def profile_frames(capture, item: dict, recon_kw: dict, frames: int = 3,
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if dev.type == "cuda" else [])
         trace_cm = profile(activities=acts)
-    timer = StageTimer(dev)
     t0 = time.perf_counter()
     with trace_cm as prof:
         for _ in range(frames):
-            capture.process_frame(item, timer=timer, **kw)
+            capture.process_frame(item, timer=tracer, **kw)
         sync()
     out["timed_frame_s"] = (time.perf_counter() - t0) / frames
-    out["stages"] = {k: v / frames for k, v in timer.times.items()}
+    out["stages"] = {k: v / frames
+                     for k, v in stage_seconds(tracer.collect()).items()}
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir,
@@ -75,10 +78,19 @@ def profile_frames(capture, item: dict, recon_kw: dict, frames: int = 3,
     return out
 
 
+def report(stages: dict) -> str:
+    """One line per stage of {name: seconds}, the longest first, each
+    with its share, and a TOTAL line."""
+    tot = sum(stages.values())
+    lines = [f"  {k:<24s} {v * 1e3:9.1f} ms  ({v / max(tot, 1e-12):5.1%})"
+             for k, v in sorted(stages.items(), key=lambda kv: -kv[1])]
+    lines.append(f"  {'TOTAL':<24s} {tot * 1e3:9.1f} ms")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> int:
     from avatarcap_tpu_torch.tools.bench_workloads import (add_subject_args,
                                                            subject_from_args)
-    from avatarcap_tpu_torch.utils.timers import StageTimer
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--nerf", action="store_true")
@@ -107,11 +119,9 @@ def main(argv=None) -> int:
           f"{rec['num_tris']:,}" + (f", recon tris={rec['recon_num_tris']:,}"
                                     if "recon_num_tris" in rec else "")
           + f", overflow={rec['overflow']}")
-    timer = StageTimer(capture.device)
-    timer.times = rec["stages"]
-    print(f"\nframe under the stage timer: {rec['timed_frame_s'] * 1e3:.1f} "
+    print(f"\nframe under the tracer: {rec['timed_frame_s'] * 1e3:.1f} "
           f"ms over {args.frames} frames")
-    print(timer.report())
+    print(report(rec["stages"]))
     print(f"\nframe without the timer: {rec['frame_s'] * 1e3:.1f} ms "
           f"({1.0 / rec['frame_s']:.2f} frames/s)")
     return 0

@@ -50,10 +50,11 @@ from avatarcap_tpu_torch.parallel.mesh import (
     sum_to_first)
 from avatarcap_tpu_torch.pipeline.avatar import (
     AvatarStatics, FrameInputs, avatar_forward, compute_pose_features,
-    query_occupancy, stage)
+    query_occupancy)
 from avatarcap_tpu_torch.train import checkpoints as ckpt
 from avatarcap_tpu_torch.train.schedules import StepSchedule
 from avatarcap_tpu_torch.utils.tb_logging import ScalarLogger
+from avatarcap_tpu_torch.utils.timers import stage
 
 GROUPS = ("cano_template", "warping_field")
 LOSS_KEYS = ("tex_loss", "geo_loss", "geo_offset_reg_loss",

@@ -29,9 +29,9 @@ Phases, each fatal on failure:
      K1's tolerances;
   4. one warm-up and one timed avatar-only capture frame,
      process_frame(item, w_recon=False, w_nerf=False), with the kernel
-     launch counts set to 0 just before and read just after the timed
+     launch counts read just before and just after the timed
      frame (2 K1 launches, no K2); outputs must be finite with triangles;
-     then the synchronised stage times;
+     then the stage times (the Tracer's stage spans);
   5. the production frame, process_frame(item, w_recon=True,
      w_nerf=False, ...): a warm-up frame, whose merged normals give the
      inputs of the two K2 (recon_decode) launches, recorded through the
@@ -43,9 +43,9 @@ Phases, each fatal on failure:
      as the ReconNet on the subject's avatar, body and grid, its decoder
      fitted to the toy body as the subject's is; 8 untextured production
      frames of distinct poses through StreamingCapture.run_pipelined
-     (lookahead 2), the launch counts set to 0 just before and read just
-     after (16 K1, 16 K2w, no K2, 8 merges), each frame finite with
-     ReconNet triangles; the last frame's merged normals give the inputs
+     (lookahead 2), the launch counts read just before and just after
+     (16 K1, 16 K2w, no K2, 8 merges), each frame finite with ReconNet
+     triangles; the last frame's merged normals give the inputs
      of its two K2w (recon_decode on PIFu's decoder,
      csrc/recon_decode_wide.cu) launches, the coarse band and the refine
      capacity, on which K2w is held against its plain version and timed
@@ -81,9 +81,8 @@ Phases, each fatal on failure:
      [occupancy]: the fitted subject's avatar weights in
      GeoTexAvatar(if_type="occupancy") at iso_value 0.5 (sigmoid(x) >= 0.5
      iff x >= 0: the SDF frame's surface), through a warm-up and two timed
-     textured production frames (the launch counts set to 0 just before
-     and read just after each: 2 K1, 2 K2, 2 K3, 1 merge), their triangle
-     counts
+     textured production frames (the launch counts read just before and
+     just after each: 2 K1, 2 K2, 2 K3, 1 merge), their triangle counts
      beside the SDF frame's, no overflow; then the small subject's three
      frame forms in the occupancy form on the card against the CPU, as
      phase 10 holds the SDF ones;
@@ -103,9 +102,9 @@ Phases, each fatal on failure:
   8. [stream] (this slice's main path): 8 full-size textured production
      frames of distinct poses through a process_frame loop and through
      StreamingCapture.run_pipelined(lookahead=2), each timed (frames/s,
-     seconds a frame) with the launch counts set to 0 just before and read
-     just after (the pipelined run: 16 K1, 16 K2, 16 K3); the frames'
-     output hashes must agree between the two and differ between poses;
+     seconds a frame) with the launch counts read just before and just
+     after (the pipelined run: 16 K1, 16 K2, 16 K3); the frames' output
+     hashes must agree between the two and differ between poses;
      then the card's busy share over a third, profiled pipelined run
      (torch.profiler: the union of the kernels' intervals over their
      span);
@@ -142,7 +141,7 @@ Phases, each fatal on failure:
      test --nerf --save-avatar-mesh --save-final-mesh runs the subject's
      two full-width textured frames with phase 2's networks saved as
      net.pt / recon_net.pt and the capture options of phase 2, the launch
-     counts set to 0 just before and read just after (4 K1, 4 K2, 4 K3);
+     counts read just before and just after (4 K1, 4 K2, 4 K3);
      the JPEGs and PLYs must exist, the PLYs be finite with triangles, and
      frame 0's avatar PLY's triangle count equal that of process_frame run
      directly on the same dataset item and weights; then the same with
@@ -425,6 +424,7 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
     plain version (the same fetch, then K1's plain version) on the first
     ``n_check`` points at K1's tolerances."""
     import torch
+    from avatarcap_tpu_torch import kernels
     from avatarcap_tpu_torch.ops.fused_query import (
         warp_template_query, warp_template_query_plain)
     from avatarcap_tpu_torch.ops.grid_sample import (
@@ -443,10 +443,10 @@ def query_fused_phase(capture, item, pts, device, n_check=65536):
                 feat.permute(0, 3, 1, 2), p - st.cano_smpl_center)[0]
 
         _sync(device)
-        _zero_launches()
+        before = dict(kernels.launches)
         out = query_occupancy_fused(pk, q, feat, st)
         _sync(device)
-        launches = _launches()
+        launches = kernels.launches_since(before)
         if launches != {"k1": 1, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
                         "merge": 0, "knn": 0, "k2w": 0}:
             raise AssertionError(f"query_occupancy_fused launched {launches}"
@@ -553,32 +553,21 @@ def _finite(tensors):
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def _zero_launches():
-    """Set every kernel's launch count to 0 (tools/bench_stream)."""
-    from avatarcap_tpu_torch.tools.bench_stream import _zero_launches as zero
-    zero()
-
-
-def _launches():
-    """Each kernel's launches since _zero_launches: K1 to K5, the
-    normal-fusion merge, the nearest-vertex distance and K2w."""
-    from avatarcap_tpu_torch.tools.bench_stream import _launches as launches
-    return launches()
-
-
 def run_frame(capture, item, device, w_nerf=False, **frame_kw):
-    """One counted and timed frame: the launch counts are set to 0 just
-    before it and read just after. Returns (results, record)."""
+    """One counted and timed frame: its launches are the counts read just
+    after it less those read just before. Returns (results, record)."""
     import torch
+    from avatarcap_tpu_torch import kernels
     _sync(device)
     torch.cuda.reset_peak_memory_stats(device)
-    _zero_launches()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     res = capture.process_frame(item, w_nerf=w_nerf, **frame_kw)
     _sync(device)
     secs = time.perf_counter() - t0
     out = {"seconds": secs,
-           **{f"{k}_launches": n for k, n in _launches().items()},
+           **{f"{k}_launches": n
+              for k, n in kernels.launches_since(before).items()},
            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
            **frame_record(res)}
     return res, out
@@ -617,11 +606,11 @@ def frame_record(res):
 
 
 def stage_times(capture, item, device, w_nerf=False, **frame_kw):
-    """Synchronised seconds of each stage of one frame."""
-    from avatarcap_tpu_torch.utils.timers import StageTimer
-    timer = StageTimer(device)
-    capture.process_frame(item, w_nerf=w_nerf, timer=timer, **frame_kw)
-    return timer.times
+    """Seconds of each stage of one frame (the Tracer's stage spans)."""
+    from avatarcap_tpu_torch.utils.timers import Tracer, stage_seconds
+    tracer = Tracer(device)
+    capture.process_frame(item, w_nerf=w_nerf, timer=tracer, **frame_kw)
+    return stage_seconds(tracer.collect())
 
 
 def recon_launch_inputs(capture, res):
@@ -731,13 +720,14 @@ def pifu_phase(capture, item, recon_kw, fit, device, n_frames=8,
     PIFU_RECON_CAPACITIES over the subject's capture options. n_frames
     untextured production frames of distinct poses through
     StreamingCapture.run_pipelined (lookahead 2) after a warm-up run,
-    with the launch counts set to 0 just before and read just after: 2 K1
+    with the launch counts read just before and just after: 2 K1
     and 2 K2w launches a frame, no K2; each frame finite, with ReconNet
     triangles. K2w's inputs from the last frame's normals (the coarse
     band and the refine capacity) are held against its plain version and
     timed (check_recon); then no frame may have overflowed. Returns (K2w's
     kernel record, the phase's record)."""
     import torch
+    from avatarcap_tpu_torch import kernels
     from avatarcap_tpu_torch.models.recon import (PIFU_SHAPE_NETWORK,
                                                   ReconNetwork)
     from avatarcap_tpu_torch.parallel import make_mesh
@@ -780,13 +770,13 @@ def pifu_phase(capture, item, recon_kw, fit, device, n_frames=8,
         w_nerf=False)
     sc.run_pipelined(items, normals, lookahead=lookahead)       # warm-up
     _sync(device)
-    _zero_launches()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     results = sc.run_pipelined(items, normals, lookahead=lookahead)
     _sync(device)
     secs = time.perf_counter() - t0
     rec.update(seconds=secs, frames_per_s=n_frames / secs,
-               launches=_launches(),
+               launches=kernels.launches_since(before),
                frame=[frame_record(r) for r in results])
     want = {"k1": 2 * n_frames, "k2": 0, "k3": 0, "k4": 0, "k5": 0,
             "merge": n_frames, "knn": 0, "k2w": 2 * n_frames}
@@ -846,7 +836,6 @@ def knn_launch_inputs(capture, item, recon_kw):
     def record(queries, database):
         recorded.append((queries.clone(), database.clone()))
         return kernel(queries, database)
-    record.launches = 0         # the wrapper counts under its module name
     K.nearest_vertex = record
     try:
         k3_launch_inputs(capture, item, res)
@@ -1536,24 +1525,24 @@ def _ply_check(path):
 
 def cli_stream_run(device, cfg, flags, outputs):
     """The test CLI again with --stream 2 (both frames in one pipelined
-    batch), its launch counts set to 0 just before and read just after;
+    batch), its launch counts read just before and just after;
     its JPEGs must equal the unstreamed run's byte for byte and its PLYs'
     triangle counts theirs."""
     import numpy as np
     import yaml
-    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch import cli, kernels
     from avatarcap_tpu_torch.data.mesh_io import load_ply
     cfg = dict(cfg, testing=dict(cfg["testing"], output_dir=os.path.join(
         CLI_DIR, "out_stream")))
     path = os.path.join(CLI_DIR, "config_stream.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    _zero_launches()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     records = cli.main(["-c", path] + flags + ["--stream", "2"])
     _sync(device)
     rec = {"test_cli_s": time.perf_counter() - t0, "frames": records,
-           "launches": _launches()}
+           "launches": kernels.launches_since(before)}
     if (len(records), rec["launches"]["k1"], rec["launches"]["k2"],
             rec["launches"]["k3"]) != (2, 4, 4, 4):
         raise AssertionError(f"the streamed CLI's {len(records)} frames "
@@ -1590,7 +1579,7 @@ def cli_phase(device, network_dirs):
     import numpy as np
     import torch
     import yaml
-    from avatarcap_tpu_torch import cli
+    from avatarcap_tpu_torch import cli, kernels
     from avatarcap_tpu_torch.body.smpl import SmplParams, canonical_pose
     from avatarcap_tpu_torch.config import load_config
     from avatarcap_tpu_torch.data.dataset import AvatarCapDataset
@@ -1669,12 +1658,12 @@ def cli_phase(device, network_dirs):
 
     flags = ["-m", "test", "--nerf", "--save-avatar-mesh",
              "--save-final-mesh"]
-    _zero_launches()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     records = cli.main(["-c", cfg_path] + flags)
     _sync(device)
     rec["test_cli_s"] = time.perf_counter() - t0
-    launches = _launches()
+    launches = kernels.launches_since(before)
     frame = records[0]
     rec.update(frame=frame, frames=records, launches=launches)
     if (len(records), launches["k1"], launches["k2"],

@@ -34,6 +34,7 @@ import torch
 
 from jax.experimental.pallas import tpu as pltpu
 
+from avatarcap_tpu_torch import kernels
 from conftest import make_toy_smpl_params
 
 # K1's plain version against the interpret-mode Pallas kernel
@@ -66,7 +67,7 @@ def _t(a):
 @pytest.fixture(scope="module")
 def body():
     """The toy body's statics and a 32 x 32 x 24 capture grid over it
-    (tests/test_torch_capture.py's construction, smaller, made with the
+    (tests/capture_cases.py's construction, smaller, made with the
     port's body, KNN and inside test: inputs both sides are given)."""
     from avatarcap_tpu_torch.body.smpl import canonical_pose, smpl_forward
     from avatarcap_tpu_torch.ops.inside import points_inside_mesh
@@ -222,18 +223,17 @@ def test_query_occupancy_fused_sdf(body, weights):
     """The port's query_occupancy_fused (the plain K1 on the CPU) against
     JAX's, its Pallas call in interpret mode, and against the f32 path."""
     from avatarcap_tpu.pipeline.avatar import query_occupancy_fused
-    from avatarcap_tpu_torch.ops.fused_query import warp_template_query
     from avatarcap_tpu_torch.pipeline.avatar import (
         query_occupancy as tquery, query_occupancy_fused as tfused)
     module, port, feat, jp, tp, pts, jst, tst = _fused_inputs(
         body, weights, "sdf")
     with pltpu.force_tpu_interpret_mode():
         ref = query_occupancy_fused(jp, jnp.asarray(pts), feat, jst)
-    before = warp_template_query.launches
+    before = kernels.launches["k1"]
     with torch.no_grad():
         got = tfused(tp, _t(pts), _t(feat), tst)
         f32 = tquery(port, _t(pts), _t(feat), tst)
-    assert warp_template_query.launches == before       # the plain version
+    assert kernels.launches["k1"] == before       # the plain version
     for k, atol in K1_ATOL.items():
         assert got[k].shape == ref[k].shape
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),

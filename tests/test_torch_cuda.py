@@ -16,6 +16,8 @@ flips stay rare), as chip_smoke.py holds it.
 import pytest
 import torch
 
+from avatarcap_tpu_torch import kernels
+
 ATOL = {"occ": 5e-3, "alpha": 5e-3, "rgb": 5e-3, "offset": 5e-4}
 K2_ATOL = 5e-3
 
@@ -71,10 +73,10 @@ def test_k1_kernel_matches_plain(card, packed, n):
     from avatarcap_tpu_torch.ops.fused_query import (
         warp_template_query, warp_template_query_plain)
     pts, pf = _inputs(n, card, seed=n)
-    before = warp_template_query.launches
+    before = kernels.launches["k1"]
     got = warp_template_query(packed["offset"], packed["template"], pts, pf)
     torch.cuda.synchronize()
-    assert warp_template_query.launches == before + 1
+    assert kernels.launches["k1"] == before + 1
     ref = warp_template_query_plain(packed["offset"], packed["template"],
                                     pts, pf)
     for k, v in ref.items():
@@ -170,10 +172,10 @@ def test_pose_features_repeat_bit_for_bit(card):
 def test_k1_empty_and_invalid_inputs(card, packed):
     from avatarcap_tpu_torch.ops.fused_query import warp_template_query
     pts, pf = _inputs(0, card)
-    before = warp_template_query.launches
+    before = kernels.launches["k1"]
     out = warp_template_query(packed["offset"], packed["template"], pts, pf)
     assert out["occ"].shape == (0, 1)
-    assert warp_template_query.launches == before
+    assert kernels.launches["k1"] == before
     pts, pf = _inputs(10, card)
     f32_template = tuple(t.float() for t in packed["template"])
     with pytest.raises(ValueError):
@@ -193,10 +195,10 @@ def test_k2_kernel_matches_plain(card, packed_recon, n):
                                                      recon_decode_plain)
     gen = torch.Generator().manual_seed(n)
     feats = torch.randn((n, 33), generator=gen).to(card)
-    before = recon_decode.launches
+    before = kernels.launches["k2"]
     got = recon_decode(packed_recon, feats)
     torch.cuda.synchronize()
-    assert recon_decode.launches == before + 1
+    assert kernels.launches["k2"] == before + 1
     ref = recon_decode_plain(packed_recon, feats)
     assert got.shape == (n,) and got.device.type == "cuda"
     torch.testing.assert_close(got, ref, atol=K2_ATOL, rtol=0)
@@ -229,10 +231,10 @@ def test_two_packed_recon_sets_in_a_row(card, packed_recon):
 @pytest.mark.cuda
 def test_k2_empty_and_invalid_inputs(card, packed_recon):
     from avatarcap_tpu_torch.ops.fused_query import recon_decode
-    before = recon_decode.launches
+    before = kernels.launches["k2"]
     assert recon_decode(packed_recon,
                         torch.zeros((0, 33), device=card)).shape == (0,)
-    assert recon_decode.launches == before
+    assert kernels.launches["k2"] == before
     feats = torch.randn((10, 33), device=card)
     with pytest.raises(ValueError):              # weights on another device
         recon_decode(tuple(t.cpu() for t in packed_recon), feats)
@@ -253,10 +255,10 @@ def test_k2w_kernel_matches_plain(card, packed_recon_wide, n):
                                                      recon_decode_wide_plain)
     gen = torch.Generator().manual_seed(n)
     feats = torch.randn((n, 257), generator=gen).to(card)
-    before = (recon_decode.launches, recon_decode.wide_launches)
+    before = (kernels.launches["k2"], kernels.launches["k2w"])
     got = recon_decode(packed_recon_wide, feats)
     torch.cuda.synchronize()
-    assert (recon_decode.launches, recon_decode.wide_launches) == (
+    assert (kernels.launches["k2"], kernels.launches["k2w"]) == (
         before[0], before[1] + 1)
     ref = recon_decode_wide_plain(packed_recon_wide, feats)
     assert got.shape == (n,) and got.device.type == "cuda"
@@ -279,10 +281,10 @@ def test_k2w_repeats_bit_for_bit(card, packed_recon_wide):
 @pytest.mark.cuda
 def test_k2w_empty_and_invalid_inputs(card, packed_recon_wide):
     from avatarcap_tpu_torch.ops.fused_query import recon_decode
-    before = recon_decode.wide_launches
+    before = kernels.launches["k2w"]
     assert recon_decode(packed_recon_wide,
                         torch.zeros((0, 257), device=card)).shape == (0,)
-    assert recon_decode.wide_launches == before
+    assert kernels.launches["k2w"] == before
     feats = torch.randn((10, 257), device=card)
     with pytest.raises(ValueError):              # weights on another device
         recon_decode(tuple(t.cpu() for t in packed_recon_wide), feats)
@@ -316,9 +318,9 @@ def test_avatar_frame_on_card(card):
                     params.num_joints, 1, 1),
                 "smpl_pos_map": torch.randn((128, 128, 6), generator=gen)
                 * 0.1}
-        before = warp_template_query.launches
+        before = kernels.launches["k1"]
         res = cap.process_frame(item, w_recon=False, w_nerf=False)
-        launches = warp_template_query.launches - before
+        launches = kernels.launches["k1"] - before
         assert launches == (2 if dev.type == "cuda" else 0)
         assert torch.isfinite(res["live_mesh"].vertices).all()
         tris[dev.type] = int(res["cano_mesh"].num_tris)
@@ -335,11 +337,11 @@ def test_k4_k5_kernels_match_plain(card, packed, n):
         template_query_plain)
     pts, pf = _inputs(n, card, seed=n)
     feats = torch.cat([pts, pf], -1)
-    before = (template_query.launches, offset_query.launches)
+    before = (kernels.launches["k4"], kernels.launches["k5"])
     got = template_query(packed["template"], pts)
     off = offset_query(packed["offset"], feats)
     torch.cuda.synchronize()
-    assert (template_query.launches, offset_query.launches) == (
+    assert (kernels.launches["k4"], kernels.launches["k5"]) == (
         before[0] + 1, before[1] + 1)
     ref = template_query_plain(packed["template"], pts)
     for g, r, k in zip(got, ref, ("rgb", "alpha", "occ")):
@@ -372,10 +374,10 @@ def test_k3_kernel_matches_plain(card, packed, n, n_samples, n_anchors):
                                                      ray_color_query_plain)
     args = _rays(n, n_anchors, card, seed=n)
     kw = dict(n_samples=n_samples, near=0.98, far=1.05, threshold=0.08)
-    before = ray_color_query.launches
+    before = kernels.launches["k3"]
     got = ray_color_query(packed["offset"], packed["template"], *args, **kw)
     torch.cuda.synchronize()
-    assert ray_color_query.launches == before + 1
+    assert kernels.launches["k3"] == before + 1
     ref = ray_color_query_plain(packed["offset"], packed["template"], *args,
                                 **kw)
     assert got.shape == (n, 3) and got.device.type == "cuda"
@@ -389,16 +391,16 @@ def test_k3_k4_k5_empty_and_invalid_inputs(card, packed):
     from avatarcap_tpu_torch.ops.fused_query import (
         offset_query, ray_color_query, template_query)
     kw = dict(n_samples=4, near=0.98, far=1.05, threshold=0.08)
-    before = (ray_color_query.launches, template_query.launches,
-              offset_query.launches)
+    before = (kernels.launches["k3"], kernels.launches["k4"],
+              kernels.launches["k5"])
     assert ray_color_query(packed["offset"], packed["template"],
                            *_rays(0, 4, card, 0), **kw).shape == (0, 3)
     assert template_query(packed["template"],
                           torch.zeros((0, 3), device=card))[0].shape == (0, 3)
     assert offset_query(packed["offset"],
                         torch.zeros((0, 67), device=card)).shape == (0, 3)
-    assert (ray_color_query.launches, template_query.launches,
-            offset_query.launches) == before
+    assert (kernels.launches["k3"], kernels.launches["k4"],
+            kernels.launches["k5"]) == before
     rays = _rays(10, 4, card, 0)
     with pytest.raises(ValueError):
         ray_color_query(packed["offset"], packed["template"], *rays,
@@ -679,11 +681,11 @@ def test_normal_modes_on_card_match_cpu(card, mode):
     out = {}
     for dev in (card, torch.device("cpu")):
         cap, item, kw, _ = _small_subject(dev, normal_mode=mode)
-        k1, k2 = warp_template_query.launches, recon_decode.launches
+        k1, k2 = kernels.launches["k1"], kernels.launches["k2"]
         out[dev.type] = cap.process_frame(item, w_recon=True, **kw)
         if dev.type == "cuda":
-            assert (warp_template_query.launches - k1,
-                    recon_decode.launches - k2) == (2, 2)
+            assert (kernels.launches["k1"] - k1,
+                    kernels.launches["k2"] - k2) == (2, 2)
             frame, jnt, normal, w2c = cap.upload(item, kw["inferred_normal"])
             neck = cap._neck_xy(kw["neck_vertex_idx"])
             torch.cuda.synchronize()
@@ -842,10 +844,10 @@ def test_occupancy_query_fused_on_card_matches_plain(card):
     feat = torch.randn((1, 128, 128, 64), generator=gen).to(card)
     with torch.no_grad():
         pk = pack_fused_query_weights(model)
-        before = warp_template_query.launches
+        before = kernels.launches["k1"]
         got = query_occupancy_fused(pk, pts, feat, statics)
         torch.cuda.synchronize()
-        assert warp_template_query.launches == before + 1
+        assert kernels.launches["k1"] == before + 1
         pf = sample_feature_map_at_points(feat.permute(0, 3, 1, 2),
                                           pts - statics.cano_smpl_center)
         ref = warp_template_query_plain(pk["offset"], pk["template"], pts[0],
@@ -959,7 +961,7 @@ def test_merge_kernel_repeats_bit_for_bit_without_sync(card):
     src, tar = _merge_pair(card, 512)
     neck = (256, 216)
     first = nf.merge_normal_images(src, tar, neck)
-    before = nf.merge_normal_images.launches
+    before = kernels.launches["merge"]
     tracer = Tracer(card)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -968,7 +970,7 @@ def test_merge_kernel_repeats_bit_for_bit_without_sync(card):
             second = nf.merge_normal_images(src, tar, neck)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert nf.merge_normal_images.launches == before + 1
+    assert kernels.launches["merge"] == before + 1
     assert torch.equal(first, second)
     _, valid, n_pixels, _ = nf._merge_masks(src, tar)
     spans = [s for s in tracer.collect() if s.name == "merge_kernel"]
@@ -992,12 +994,12 @@ def test_merge_kernel_matches_jax(card, iter_num, neck):
     from avatarcap_tpu_torch.fusion import normal_fusion as nf
     src, tar = merge_inputs()
     ref = load_jax_fixture()[case_name(iter_num, neck)]
-    before = nf.merge_normal_images.launches
+    before = kernels.launches["merge"]
     with torch.inference_mode():            # as the capture frame calls it
         got = nf.merge_normal_images(torch.as_tensor(src).to(card),
                                      torch.as_tensor(tar).to(card), neck,
                                      iter_num=iter_num)
-    assert nf.merge_normal_images.launches == before + 1
+    assert kernels.launches["merge"] == before + 1
     got = got.cpu().numpy()
     assert np.all(np.isfinite(got))
     # the merge moved pixels by more than the bound, so returning the
@@ -1058,9 +1060,9 @@ def test_knn_kernel_matches_plain_on_random_points(card, n):
     v = _body(card)
     q = ((torch.rand((n, 3), generator=gen) * 2.2 - 1.1).to(card)
          + v.mean(0))
-    before = K.nearest_vertex.launches
+    before = kernels.launches["knn"]
     rec = _knn_agreement(q, v)
-    assert K.nearest_vertex.launches == before + 1
+    assert kernels.launches["knn"] == before + 1
     assert rec == {"d2_bits": 0, "idx_unique": 0, "idx_tied": 0,
                    "tied_rows": rec["tied_rows"]}, rec
 
@@ -1096,7 +1098,6 @@ def test_knn_kernel_streams_a_database_above_one_stage(card, m):
     """Databases of more than one stage of the kernel (kStageVertices
     points; a last stage of one point; three stages) against knn_plain,
     with ties from repeated points across stages."""
-    from avatarcap_tpu_torch import kernels
     assert m > kernels.source_constants("nearest_vertex.cu")["kStageVertices"]
     gen = torch.Generator().manual_seed(m)
     v = torch.rand((m, 3), generator=gen) * 2 - 1
@@ -1142,7 +1143,7 @@ def test_knn_kernel_empty_other_paths_and_invalid_inputs(card):
     database on another device, and the checks the CPU tests hold."""
     from avatarcap_tpu_torch.ops import knn as K
     v = _body(card)
-    before = K.nearest_vertex.launches
+    before = kernels.launches["knn"]
     d, i = K.knn(torch.empty((0, 3), device=card), v)
     assert d.shape == i.shape == (0, 1) and i.dtype == torch.int64
     q = torch.rand((1000, 3), device=card)
@@ -1150,7 +1151,7 @@ def test_knn_kernel_empty_other_paths_and_invalid_inputs(card):
         d, i = K.knn(*args)
         d_ref, i_ref = K.knn_plain(*args)
         assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
-    assert K.nearest_vertex.launches == before
+    assert kernels.launches["knn"] == before
     with pytest.raises(ValueError, match="out of the kernel's range"):
         K.nearest_vertex(q, v[:0])
     with pytest.raises(ValueError, match="on cpu"):
@@ -1163,9 +1164,9 @@ def test_knn_kernel_empty_other_paths_and_invalid_inputs(card):
 def test_knn_kernel_on_the_small_textured_frame(card, monkeypatch):
     """The anchor distances of the small textured production frame (both
     soups' unique rays x 4 anchors against the body): every call through
-    knn reaches the kernel, whose outputs are knn_plain's bits at the
-    frame's chunk; under a tracer each launch is a ``knn_kernel`` span
-    inside a ``knn`` span, its ``rows`` the call's queries."""
+    knn reaches the kernel, whose outputs are knn_plain's bits; under a
+    tracer each launch is a ``knn_kernel`` span inside a ``knn`` span, its
+    ``rows`` the call's queries."""
     from avatarcap_tpu_torch.ops import knn as K
     from avatarcap_tpu_torch.utils.timers import Tracer
     cap, items, kw = _small_capture(card)
@@ -1175,7 +1176,6 @@ def test_knn_kernel_on_the_small_textured_frame(card, monkeypatch):
     def recording(queries, database):
         seen.append((queries.clone(), database.clone()))
         return kernel(queries, database)
-    recording.launches = 0          # the wrapper counts under its name
     monkeypatch.setattr(K, "nearest_vertex", recording)
     tracer = Tracer(card)
     cap.process_frame(items[1], w_recon=True, w_nerf=True, timer=tracer,
@@ -1206,13 +1206,13 @@ def test_knn_kernel_repeats_bit_for_bit_without_sync(card):
     gen = torch.Generator().manual_seed(7)
     q = (torch.rand((65536, 3), generator=gen) * 2 - 1).to(card) + v.mean(0)
     first = K.knn(q, v)
-    before = K.nearest_vertex.launches
+    before = kernels.launches["knn"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         second = K.knn(q, v)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert K.nearest_vertex.launches == before + 1
+    assert kernels.launches["knn"] == before + 1
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])

@@ -1,10 +1,11 @@
 """The command-line slice's modules against the JAX package on the CPU: the
 config, the SMPL pkl reader, the inside test, the live-preview camera
 helpers, the renderers (render_mesh_single, render_cano_mesh,
-render_live_mesh, normal2color, AvatarCapture.render_live), StageTimer and
-the Chamfer metrics. Meshes are the toy body (denser than the default
-toy, so the renders cover a few thousand pixels); images are compared
-outside the raster's boundary band, as tests/test_torch_capture.py does.
+render_live_mesh, normal2color, AvatarCapture.render_live), the stage
+timer (utils/timers.Tracer) and the Chamfer metrics. Meshes are the toy
+body (denser than the default toy, so the renders cover a few thousand
+pixels); images are compared outside the raster's boundary band, as
+tests/test_torch_capture.py does.
 The dataset's test mode is held in tests/test_torch_data.py, the CLI in
 tests/test_torch_cli.py.
 """
@@ -370,32 +371,40 @@ def test_normal2color_matches_jax():
 
 
 def test_stage_timer():
-    """Stages accumulate per name, the timer is the stage hooks' callable,
-    ``maybe`` with None is a no-op, and the report lists every stage."""
-    from avatarcap_tpu_torch.utils.timers import StageTimer
-    timer = StageTimer("cpu")
+    """The tracer is the stage hooks' callable; its stages accumulate per
+    name in stage_seconds, ``stage`` with a None hook is the shared
+    no-op, and profile_frame's report lists every stage and the total."""
+    from avatarcap_tpu_torch.tools.profile_frame import report
+    from avatarcap_tpu_torch.utils.timers import (NO_SPAN, Tracer, stage,
+                                                  stage_seconds)
+    tracer = Tracer("cpu")
     for name in ("a", "b", "a"):
-        with timer(name):
+        with tracer(name):
             torch.ones(10).sum()
-    with StageTimer.maybe(timer, "c"):
+    with stage(tracer, "c"):
         pass
-    with StageTimer.maybe(None, "d"):
+    assert stage(None, "d") is NO_SPAN
+    with stage(None, "d"):
         pass
-    assert set(timer.times) == {"a", "b", "c"}
-    assert all(v >= 0.0 for v in timer.times.values())
-    assert timer.total() == pytest.approx(sum(timer.times.values()))
-    report = timer.report()
-    assert all(k in report for k in ("a", "b", "c", "TOTAL"))
+    spans = tracer.collect()
+    times = stage_seconds(spans)
+    assert list(times) == ["a", "b", "c"]
+    assert all(v >= 0.0 for v in times.values())
+    assert times["a"] == pytest.approx(sum(
+        (s.end_ns - s.start_ns) * 1e-9 for s in spans if s.name == "a"))
+    text = report(times)
+    assert all(k in text for k in ("a", "b", "c", "TOTAL"))
+    assert f"{sum(times.values()) * 1e3:9.1f} ms" in text.splitlines()[-1]
 
 
 def test_stage_timer_names_are_process_frames():
-    """The stage names a StageTimer records through process_frame are the
+    """The stage names a Tracer records through process_frame are the
     frame's stages (the avatar-only frame, on the CPU f32 path)."""
     from avatarcap_tpu_torch.pipeline.capture import (AvatarCapture,
                                                       CaptureOptions)
     from avatarcap_tpu_torch.tools.bench_workloads import (
         build_capture_grid, random_avatar, toy_avatar_statics)
-    from avatarcap_tpu_torch.utils.timers import StageTimer
+    from avatarcap_tpu_torch.utils.timers import Tracer, stage_seconds
     params, statics, v = toy_avatar_statics(dense=False)
     grid, _ = build_capture_grid(statics, (24, 24, 16))
     gen = torch.Generator().manual_seed(0)
@@ -410,9 +419,10 @@ def test_stage_timer_names_are_process_frames():
                                           (params.num_joints, 1, 1)),
             "smpl_pos_map": (0.1 * torch.randn((64, 64, 6), generator=gen)
                              ).numpy()}
-    timer = StageTimer("cpu")
-    capture.process_frame(item, w_recon=False, timer=timer)
-    assert list(timer.times) == ["geometry", "skinning", "cano_layers"]
+    tracer = Tracer("cpu")
+    capture.process_frame(item, w_recon=False, timer=tracer)
+    assert list(stage_seconds(tracer.collect())) == [
+        "geometry", "skinning", "cano_layers"]
 
 
 def test_chamfer_distance_matches_jax():

@@ -22,6 +22,8 @@ import torch
 
 from jax.experimental.pallas import tpu as pltpu
 
+from avatarcap_tpu_torch import kernels
+
 ATOL = {"occ": 5e-3, "alpha": 5e-3, "rgb": 5e-3, "offset": 5e-4}
 
 
@@ -98,11 +100,11 @@ def test_plain_matches_pallas_interpret(weights, n):
         ref = warp_template_query_fused(jp["offset"], jp["template"],
                                         jnp.asarray(pts), jnp.asarray(pf))
         ref = {k: np.asarray(v) for k, v in ref.items()}
-    before = warp_template_query.launches
+    before = kernels.launches["k1"]
     got = warp_template_query(tp["offset"], tp["template"],
                               torch.as_tensor(pts), torch.as_tensor(pf))
     # CPU tensors take the plain version: no kernel launch is counted
-    assert warp_template_query.launches == before
+    assert kernels.launches["k1"] == before
     for k, v in ref.items():
         assert got[k].shape == v.shape and got[k].dtype == torch.float32
         np.testing.assert_allclose(got[k].numpy(), v, atol=ATOL[k],

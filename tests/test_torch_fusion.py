@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import merge_cases
+from avatarcap_tpu_torch import kernels
 from conftest import make_toy_smpl_params
 
 
@@ -347,7 +348,6 @@ def test_merge_tables_match_resize_and_adam(H, iter_num):
 def test_merge_source_constants_match():
     """csrc/normal_merge.cu's grid side and workspace against the Python
     side's."""
-    from avatarcap_tpu_torch import kernels
     from avatarcap_tpu_torch.fusion import normal_fusion as nf
     c = kernels.source_constants("normal_merge.cu")
     assert c["kGrid"] == nf.MERGE_GRID
@@ -361,11 +361,11 @@ def test_merge_cpu_takes_plain_path():
     from avatarcap_tpu_torch.fusion import normal_fusion as nf
     from avatarcap_tpu_torch.utils.timers import Tracer
     src, tar = _merge_inputs(48, seed=2)
-    before = nf.merge_normal_images.launches
+    before = kernels.launches["merge"]
     tracer = Tracer("cpu")
     with tracer("merge"):
         got = nf.merge_normal_images(_t(src), _t(tar), (24, 40), iter_num=6)
-    assert nf.merge_normal_images.launches == before
+    assert kernels.launches["merge"] == before
     assert [s.name for s in tracer.collect()] == ["merge"]
     ref = nf.merge_normal_images_plain(_t(src), _t(tar), (24, 40), iter_num=6)
     assert torch.equal(got, ref)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from avatarcap_tpu_torch import kernels
 from avatarcap_tpu_torch.ops import knn as K
 
 
@@ -36,11 +37,11 @@ def test_knn_on_cpu_takes_the_plain_path(k):
     ``knn_kernel`` span under a tracer (only ``knn``)."""
     from avatarcap_tpu_torch.utils.timers import Tracer
     q, v = _inputs(seed=k)
-    before = K.nearest_vertex.launches
+    before = kernels.launches["knn"]
     tracer = Tracer("cpu")
     with tracer("stage"):
         d, i = K.knn(q, v, k=k, chunk=64)
-    assert K.nearest_vertex.launches == before
+    assert kernels.launches["knn"] == before
     assert [s.name for s in tracer.collect()] == ["stage", "knn"]
     d_ref, i_ref = K.knn_plain(q, v, k, 64)
     assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
@@ -98,10 +99,10 @@ def test_nearest_vertex_rejects_what_the_kernel_does_not_take(case):
         assert q.shape == (40, 3) and not q.is_contiguous()
     elif case == "noncontiguous_db":
         v = v.t().contiguous().t()
-    before = K.nearest_vertex.launches
+    before = kernels.launches["knn"]
     with pytest.raises(ValueError, match=match):
         K.nearest_vertex(q, v)
-    assert K.nearest_vertex.launches == before
+    assert kernels.launches["knn"] == before
 
 
 def test_nearest_vertex_constants_match_the_source():
@@ -109,7 +110,6 @@ def test_nearest_vertex_constants_match_the_source():
     (the toy body's 6,842 vertices, SMPL's 6,890) is one stage, and two
     blocks of a whole stage fit an H100 SM's 228 KB of shared memory (1 KB
     of each block's is the system's)."""
-    from avatarcap_tpu_torch import kernels
     c = kernels.source_constants("nearest_vertex.cu")
     assert c["kWarps"] * 32 == c["kBlockThreads"]
     assert c["kBlockQueries"] == 32 * c["kQueriesPerLane"]

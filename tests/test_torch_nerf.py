@@ -23,6 +23,7 @@ import torch
 
 from jax.experimental.pallas import tpu as pltpu
 
+from avatarcap_tpu_torch import kernels
 from conftest import make_toy_smpl_params
 # K1's weights (BatchNorm statistics drawn, a trained warp's offset scale,
 # an O(0.1) geometry head): the fixture K1's tolerances were measured on
@@ -126,13 +127,13 @@ def test_k3_plain_matches_pallas_interpret(env, packed, n_samples,
             jnp.asarray(pf1).astype(jnp.bfloat16), jnp.asarray(danch),
             st.cano_bounds, n_samples=n_samples, near=near, far=far,
             tile=256))
-    before = ray_color_query.launches
+    before = kernels.launches["k3"]
     got = ray_color_query(tp["offset"], tp["template"], _t(ro), _t(rd),
                           _t(pf0).to(torch.bfloat16),
                           _t(pf1).to(torch.bfloat16), _t(danch),
                           env["tstatics"].cano_bounds, n_samples=n_samples,
                           near=near, far=far, threshold=NEAR_SMPL_DIST)
-    assert ray_color_query.launches == before          # CPU: plain version
+    assert kernels.launches["k3"] == before          # CPU: plain version
     assert got.shape == (192, 3) and got.dtype == torch.float32
     assert (ref > 1e-3).any(), "degenerate case: all rays empty"
     np.testing.assert_allclose(got.numpy(), ref, atol=K3_ATOL)
@@ -154,10 +155,10 @@ def test_k4_k5_plain_match_pallas_interpret(weights):
             jp["template"], jnp.asarray(pts))]
         ref_off = np.asarray(offset_query_fused(jp["offset"],
                                                 jnp.asarray(feats)))
-    before = (template_query.launches, offset_query.launches)
+    before = (kernels.launches["k4"], kernels.launches["k5"])
     got = template_query(tp["template"], _t(pts))
     off = offset_query(tp["offset"], _t(feats))
-    assert (template_query.launches, offset_query.launches) == before
+    assert (kernels.launches["k4"], kernels.launches["k5"]) == before
     for g, r, k in zip(got, ref, ("rgb", "alpha", "occ")):
         assert g.shape == r.shape
         np.testing.assert_allclose(g.numpy(), r, atol=ATOL[k], err_msg=k)

@@ -7,7 +7,7 @@ Every streamed frame runs ``frame_body``, the code of process_frame, on
 the same inputs, so the CPU results must be equal bit for bit, in all
 three frame forms (avatar-only, production, textured production) and on
 distinct poses. Against JAX both sides run the f32 module path and compare
-at tests/test_torch_capture.py's mesh bounds.
+at tests/capture_cases.py's mesh bounds.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import make_toy_smpl_params
-from test_torch_capture import env as capture_env  # noqa: F401
+from capture_cases import env as capture_env  # noqa: F401
 
 SMALL = dict(max_tris=1 << 14, max_active=1 << 12, render_res=64,
              fusion_iters=2, n_samples=2, refine_capacity=1 << 14,
@@ -249,14 +249,14 @@ def test_rotated_pose_rotates_live_normals(env):
 def test_pipelined_matches_jax_streaming(capture_env):
     """The production frame streamed by both packages on one device (JAX:
     a one-device mesh), 2 poses, f32 module path on both sides, on the
-    fixture of tests/test_torch_capture.py and at its mesh bounds: the
+    fixture of tests/capture_cases.py and at its mesh bounds: the
     avatar and ReconNet meshes, the live ReconNet mesh, the overflow bit."""
     from avatarcap_tpu.parallel.mesh import make_mesh
     from avatarcap_tpu.pipeline.capture import AvatarCapture, CaptureOptions
     from avatarcap_tpu.pipeline.streaming import StreamingCapture
     from avatarcap_tpu_torch.pipeline.streaming import StreamingCapture as TS
-    from test_torch_capture import (OPTS, _close_mostly, _compare_mesh,
-                                    _port_capture)
+    from capture_cases import (OPTS, _close_mostly, _compare_mesh,
+                               _port_capture)
     env = capture_env
     second = dict(env["item"], smpl_pos_map=env["item"]["smpl_pos_map"]
                   + np.float32(0.05) * np.random.RandomState(5)
